@@ -15,12 +15,12 @@ import sys
 
 import jax
 
-# CPU is fine for the tiny config; on a TPU host, delete this line.
+# CPU is fine for the tiny config; on a GPU host, delete this line.
 jax.config.update("jax_platforms", "cpu")
 
-from ltx_tpu.core.config import GenerationConfig          # noqa: E402
-from ltx_tpu.io.video import export_video                 # noqa: E402
-from ltx_tpu.pipeline.generate import LTXPipeline         # noqa: E402
+from ltx_jax.core.config import GenerationConfig          # noqa: E402
+from ltx_jax.io.video import export_video                 # noqa: E402
+from ltx_jax.pipeline.generate import LTXPipeline         # noqa: E402
 
 
 def main(out_path: str = "tiny_demo.mp4") -> None:

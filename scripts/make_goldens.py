@@ -2,7 +2,7 @@
 
 Run ONLY for intentional numerics changes (new scheduler semantics, a
 deliberate kernel change) — and say so in the commit message. CPU-forced
-so goldens are independent of the TPU backend:
+so goldens are independent of the accelerator:
 
     python scripts/make_goldens.py
 """
@@ -20,8 +20,8 @@ jax.config.update("jax_default_matmul_precision", "float32")
 
 import numpy as np  # noqa: E402
 
-from ltx_tpu.core.config import GenerationConfig  # noqa: E402
-from ltx_tpu.pipeline.generate import LTXPipeline  # noqa: E402
+from ltx_jax.core.config import GenerationConfig  # noqa: E402
+from ltx_jax.pipeline.generate import LTXPipeline  # noqa: E402
 
 OUT = pathlib.Path(__file__).parent.parent / "tests" / "goldens"
 

@@ -1,6 +1,6 @@
 """End-to-end LoRA fine-tune driver: latent shards -> adapter safetensors.
 
-Thin wrapper over ltx_tpu.train.cli (the same loop the `ltx-video train`
+Thin wrapper over ltx_jax.train.cli (the same loop the `ltx-video train`
 subcommand runs). Kept as a standalone script for environments that drive
 training without installing the CLI entry point.
 
@@ -16,7 +16,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from ltx_tpu.train.cli import add_train_arguments, run  # noqa: E402
+from ltx_jax.train.cli import add_train_arguments, run  # noqa: E402
 
 
 def parse_args(argv=None):

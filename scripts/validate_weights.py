@@ -7,7 +7,7 @@ reports on every apply (reference: ModelDownloader.swift:990-1060) and
 (reference: LTXPipeline.swift:631-698). This script reproduces both against
 REAL downloaded checkpoints:
 
-    python scripts/validate_weights.py --models-dir ~/.cache/ltx-tpu \\
+    python scripts/validate_weights.py --models-dir ~/.cache/ltx-jax \\
         [--model distilled] [--audio] [--diag-run] [--json report.json]
 
 For each component it reports: source tensor count, mapped count, unmapped
@@ -56,9 +56,9 @@ def _report(name: str, n_src: int, n_mapped: int, unmapped, leaves: int):
 def validate(models_dir: str, model_name: str = "distilled",
              include_audio: bool = False, gemma_path=None,
              unified_path=None, tcfg=None):
-    from ltx_tpu.core.config import LTXModel, TransformerConfig
-    from ltx_tpu.weights import keymaps
-    from ltx_tpu.weights.download import (
+    from ltx_jax.core.config import LTXModel, TransformerConfig
+    from ltx_jax.weights import keymaps
+    from ltx_jax.weights.download import (
         load_safetensors,
         load_safetensors_dir,
     )
@@ -126,7 +126,7 @@ def validate(models_dir: str, model_name: str = "distilled",
     # --- Gemma
     gdir = Path(gemma_path) if gemma_path else base / "vlm-gemma"
     if gdir.exists() and any(gdir.glob("*.safetensors")):
-        import ltx_tpu.models.gemma3 as gemma3
+        import ltx_jax.models.gemma3 as gemma3
 
         with open(gdir / "config.json") as f:
             gcfg = gemma3.Gemma3Config.from_hf_dict(json.load(f))
@@ -150,11 +150,11 @@ def validate(models_dir: str, model_name: str = "distilled",
             continue
         t = load_safetensors(files[0])
         if loader == "upscaler":
-            from ltx_tpu.models import upscaler as up
+            from ltx_jax.models import upscaler as up
 
             params = up.load_params(t)
         else:
-            from ltx_tpu.models import audio_vae as av_mod
+            from ltx_jax.models import audio_vae as av_mod
 
             params = (av_mod.load_audio_vae_params(t)
                       if loader == "audio_vae"
@@ -176,11 +176,11 @@ def diag_run(models_dir, model_name, gemma_path, unified_path,
     emits the per-step [DIAG] latent stats that diff line-by-line against
     the reference's logs (LTXPipeline.swift:631-698)."""
     os.environ["LTX_DIAG"] = "1"
-    import ltx_tpu.utils.diagnostics as diag
+    import ltx_jax.utils.diagnostics as diag
 
     diag.DIAG_ENABLED = True
-    from ltx_tpu.core.config import GenerationConfig, LTXModel, MemoryConfig
-    from ltx_tpu.pipeline.loader import load_pipeline
+    from ltx_jax.core.config import GenerationConfig, LTXModel, MemoryConfig
+    from ltx_jax.pipeline.loader import load_pipeline
 
     pipe = load_pipeline(model=LTXModel(model_name), models_dir=models_dir,
                          gemma_path=gemma_path,
@@ -221,7 +221,7 @@ def dry_run():
         if rc:
             print(f"dry-run validation FAILED (rc={rc})")
             return rc
-        from ltx_tpu.core.config import GenerationConfig
+        from ltx_jax.core.config import GenerationConfig
 
         rc = diag_run(
             str(base), "distilled", None, None,
@@ -258,12 +258,12 @@ def main():
     if args.dry_run:
         return dry_run()
 
-    from ltx_tpu.weights.download import default_models_dir
+    from ltx_jax.weights.download import default_models_dir
 
     models_dir = args.models_dir or default_models_dir()
     if args.download:
-        from ltx_tpu.core.config import LTXModel
-        from ltx_tpu.weights.download import download_all_components
+        from ltx_jax.core.config import LTXModel
+        from ltx_jax.weights.download import download_all_components
 
         download_all_components(LTXModel(args.model), models_dir=models_dir,
                                 include_audio=args.audio,

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import TransformerConfig
-from ltx_tpu.models import audio_vae, dit_av
+from ltx_jax.core.config import TransformerConfig
+from ltx_jax.models import audio_vae, dit_av
 
 AV_CFG = audio_vae.AudioVAEConfig().tiny()
 VOC_CFG = audio_vae.VocoderConfig().tiny()

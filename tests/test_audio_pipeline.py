@@ -6,8 +6,8 @@ import jax
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig
-from ltx_tpu.pipeline.generate import LTXPipeline
+from ltx_jax.core.config import GenerationConfig
+from ltx_jax.pipeline.generate import LTXPipeline
 
 
 @pytest.fixture(scope="module")

@@ -6,8 +6,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig
-from ltx_tpu.pipeline.generate import LTXPipeline
+from ltx_jax.core.config import GenerationConfig
+from ltx_jax.pipeline.generate import LTXPipeline
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +53,7 @@ def test_av_two_stage_i2v_from_path(pipe, image_file):
 
 
 def test_av_two_stage_requires_audio_models():
-    from ltx_tpu.core.errors import ModelNotLoadedError
+    from ltx_jax.core.errors import ModelNotLoadedError
 
     p = LTXPipeline.random_tiny(seed=0, include_audio=False)
     cfg = GenerationConfig(width=128, height=128, num_frames=9, num_steps=2,
@@ -83,8 +83,8 @@ def test_i2v_single_stage_from_path(pipe, image_file):
 
 def _run_cli(monkeypatch, pipe, argv, tmp_path):
     """Drive cmd_generate with the tiny pipeline patched in."""
-    import ltx_tpu.pipeline.loader as loader_mod
-    from ltx_tpu.io import cli
+    import ltx_jax.pipeline.loader as loader_mod
+    from ltx_jax.io import cli
 
     monkeypatch.setattr(loader_mod, "load_pipeline",
                         lambda **kw: pipe, raising=True)

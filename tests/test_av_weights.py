@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import TransformerConfig
-from ltx_tpu.models import dit_av, gemma3
-from ltx_tpu.weights import keymaps
+from ltx_jax.core.config import TransformerConfig
+from ltx_jax.models import dit_av, gemma3
+from ltx_jax.weights import keymaps
 
 CFG = TransformerConfig().tiny()
 
@@ -111,7 +111,7 @@ def test_av_transformer_load_and_forward():
 
 
 def test_enhance_prompt_fallback_and_template():
-    from ltx_tpu.pipeline import enhance
+    from ltx_jax.pipeline import enhance
 
     chat = enhance.build_chat_prompt("SYS", "a cat")
     assert chat.startswith("<start_of_turn>user\nSYS")
@@ -130,7 +130,7 @@ def test_enhance_prompt_fallback_and_template():
 
 
 def test_enhance_prompt_with_stub_tokenizer():
-    from ltx_tpu.pipeline import enhance
+    from ltx_jax.pipeline import enhance
 
     gcfg = gemma3.Gemma3Config().tiny()
     gp = gemma3.init_params(jax.random.key(0), gcfg, jnp.float32)

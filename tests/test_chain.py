@@ -15,10 +15,10 @@ import jax
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig
-from ltx_tpu.core.errors import InvalidConfigurationError
-from ltx_tpu.pipeline import generate as gen_mod
-from ltx_tpu.pipeline.generate import GenerationTimings, LTXPipeline
+from ltx_jax.core.config import GenerationConfig
+from ltx_jax.core.errors import InvalidConfigurationError
+from ltx_jax.pipeline import generate as gen_mod
+from ltx_jax.pipeline.generate import GenerationTimings, LTXPipeline
 
 
 def _cfg(**kw):
@@ -98,9 +98,9 @@ def test_chain_rebind_matches_canonical_denoise(pipe):
     assert len(seen) == 3
     k_lat = 2  # (9 - 1) // 8 + 1
 
-    from ltx_tpu.ops.latents import VideoLatentShape
-    from ltx_tpu.pipeline.denoise import build_guidance_context
-    from ltx_tpu.pipeline.generate import GuidanceSpec
+    from ltx_jax.ops.latents import VideoLatentShape
+    from ltx_jax.pipeline.denoise import build_guidance_context
+    from ltx_jax.pipeline.generate import GuidanceSpec
 
     shape = VideoLatentShape.from_pixels(1, 17, 64, 64,
                                          channels=pipe.tcfg.in_channels)
@@ -227,7 +227,7 @@ def test_av_chain_stitch_and_program_reuse(pipe_av):
     """3 AV segments: video trims the overlap, audio crossfades over the
     same window, and ALL extension segments share one step build (base +
     ext = exactly 2 make_av_denoise_step calls)."""
-    import ltx_tpu.pipeline.denoise as dn
+    import ltx_jax.pipeline.denoise as dn
 
     calls = []
     orig = dn.make_av_denoise_step
@@ -258,9 +258,8 @@ def test_av_chain_stitch_and_program_reuse(pipe_av):
 def test_av_chain_audio_cond(pipe_av):
     """audio_cond=True (round 5): the extension step is built with
     audio_cond_frames = the overlap window's audio latent frames, and the
-    result is finite with the standard stitched length (spectral seam
-    analysis lives in scripts/audio_cond_probe.py)."""
-    import ltx_tpu.pipeline.denoise as dn
+    result is finite with the standard stitched length."""
+    import ltx_jax.pipeline.denoise as dn
 
     cfg = _cfg(image_cond_noise_scale=0.15)
     calls = []
@@ -296,9 +295,9 @@ def test_av_step_audio_conditioning_mechanism(pipe_av):
     import jax
     import jax.numpy as jnp
 
-    from ltx_tpu.models import dit_av
-    from ltx_tpu.ops.latents import VideoLatentShape
-    from ltx_tpu.pipeline.denoise import (
+    from ltx_jax.models import dit_av
+    from ltx_jax.ops.latents import VideoLatentShape
+    from ltx_jax.pipeline.denoise import (
         GuidanceSpec, build_guidance_context, make_av_denoise_step,
     )
 
@@ -355,8 +354,8 @@ def test_av_step_audio_conditioning_mechanism(pipe_av):
 def test_cmd_generate_chain_audio_dispatch(tmp_path, monkeypatch):
     """`generate --chain 2 --audio` routes through the AV chain and
     writes MP4 + side WAV."""
-    from ltx_tpu.io import cli
-    from ltx_tpu.pipeline import loader
+    from ltx_jax.io import cli
+    from ltx_jax.pipeline import loader
 
     monkeypatch.setattr(
         loader, "load_pipeline",
@@ -380,8 +379,8 @@ def test_serve_chain_job_http(pipe, tmp_path):
     import urllib.error
     import urllib.request
 
-    from ltx_tpu.serve.app import build_app
-    from ltx_tpu.serve.server import serve_forever_threaded
+    from ltx_jax.serve.app import build_app
+    from ltx_jax.serve.server import serve_forever_threaded
 
     app = build_app(pipe, output_dir=str(tmp_path / "out"), port=0)
     serve_forever_threaded(app.server)
@@ -420,8 +419,8 @@ def test_serve_chain_job_http(pipe, tmp_path):
 
 def test_cmd_generate_chain_dispatch(tmp_path, monkeypatch):
     """`generate --chain 2` end-to-end through cmd_generate."""
-    from ltx_tpu.io import cli
-    from ltx_tpu.pipeline import loader
+    from ltx_jax.io import cli
+    from ltx_jax.pipeline import loader
 
     monkeypatch.setattr(loader, "load_pipeline",
                         lambda **kw: LTXPipeline.random_tiny(seed=0))

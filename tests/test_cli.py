@@ -2,7 +2,7 @@
 
 import pytest
 
-from ltx_tpu.io.cli import _generation_config, build_parser, main
+from ltx_jax.io.cli import _generation_config, build_parser, main
 
 
 def parse(argv):
@@ -50,8 +50,8 @@ def test_flag_mapping():
 def test_distilled_lora_forces_dev_8_steps_no_cfg():
     """--distilled-lora forces dev model + 8 steps + no CFG unless
     overridden (reference: LTXVideoCLI.swift:186-187,275-283)."""
-    from ltx_tpu.core.config import LTXModel
-    from ltx_tpu.io.cli import _effective_model
+    from ltx_jax.core.config import LTXModel
+    from ltx_jax.io.cli import _effective_model
 
     args = parse(["generate", "x", "-m", "distilled", "--distilled-lora"])
     assert _effective_model(args) is LTXModel.DEV
@@ -74,7 +74,7 @@ def test_distilled_lora_forces_dev_8_steps_no_cfg():
 def test_default_negative_prompt_matches_reference():
     """The ~100-term default negative prompt is behavioral data from the
     reference (LTXPipeline.swift:19-31); spot-check invariants."""
-    from ltx_tpu.core.config import DEFAULT_NEGATIVE_PROMPT as p
+    from ltx_jax.core.config import DEFAULT_NEGATIVE_PROMPT as p
 
     assert p.startswith("blurry, out of focus, overexposed")
     assert p.endswith("stylized filters, or AI artifacts.")
@@ -107,13 +107,17 @@ def test_gemma_quant_flag():
     assert args.gemma_quant == "int4"
 
 
-def test_memory_auto_applied_when_over_budget():
-    """With no explicit --memory, a config whose HBM estimate exceeds one
-    chip silently gets a staged preset (reference auto-selects by RAM,
-    MemoryOptimizationConfig.swift:69-121)."""
-    from ltx_tpu.io.cli import _resolve_memory
+def test_memory_auto_applied_when_over_budget(monkeypatch):
+    """With no explicit --memory, a config whose memory estimate exceeds
+    the device's limit silently gets a staged preset (reference
+    auto-selects by RAM, MemoryOptimizationConfig.swift:69-121)."""
+    from ltx_jax.io.cli import _resolve_memory
+    from ltx_jax.utils import device_memory
 
-    # flagship-scale 241f @ 1216x704 int4: does not fit untiled on 15.5 GB
+    # a 16 GB device: flagship-scale 241f @ 1216x704 int4 does not fit it
+    # untiled
+    monkeypatch.setattr(device_memory, "device_memory_gb",
+                        lambda device=None: 16.0)
     args = parse(["generate", "x", "-w", "1216", "-H", "704", "-f", "241",
                   "--transformer-quant", "int4"])
     mem = _resolve_memory(args, _generation_config(args))
@@ -144,6 +148,15 @@ def test_memory_auto_applied_when_over_budget():
     assert mem.phase_staging
 
 
+    # a device that reports no limit gets no automatic preset
+    monkeypatch.setattr(device_memory, "device_memory_gb",
+                        lambda device=None: None)
+    args = parse(["generate", "x", "-w", "1216", "-H", "704", "-f", "241",
+                  "--transformer-quant", "int4"])
+    mem = _resolve_memory(args, _generation_config(args))
+    assert not mem.phase_staging and mem.vae_tile_size == 0
+
+
 def test_download_and_info_subcommands():
     d = parse(["download", "-m", "dev", "--force", "--audio"])
     assert d.model == "dev" and d.force and d.audio
@@ -158,9 +171,9 @@ def test_cmd_generate_i2v_two_stage_dispatch(tmp_path, monkeypatch):
     import numpy as np
     from PIL import Image
 
-    from ltx_tpu.io import cli
-    from ltx_tpu.pipeline import loader
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    from ltx_jax.io import cli
+    from ltx_jax.pipeline import loader
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     img_path = tmp_path / "cond.png"
     rng = np.random.default_rng(0)
@@ -188,9 +201,9 @@ def test_cmd_generate_audio_two_stage_dispatch(tmp_path, monkeypatch):
     """`generate --audio --two-stage` must dispatch to the audio two-stage
     entry point (round-1 CLI silently preferred --two-stage) and export an
     MP4 plus a side WAV."""
-    from ltx_tpu.io import cli
-    from ltx_tpu.pipeline import loader
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    from ltx_jax.io import cli
+    from ltx_jax.pipeline import loader
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     calls = {}
 
@@ -214,10 +227,15 @@ def test_cmd_generate_audio_two_stage_dispatch(tmp_path, monkeypatch):
 def test_model_auto_applies_registry_recommendation(monkeypatch):
     """--model auto resolves via weights/registry.py (reference:
     LTXModelRegistry.recommendedModel) and upgrades the default quant."""
-    from ltx_tpu.core.config import LTXModel
-    from ltx_tpu.io.cli import _effective_model
+    from ltx_jax.core.config import LTXModel
+    from ltx_jax.io.cli import _effective_model
 
-    monkeypatch.setattr("jax.devices", lambda *a: [object()])  # one chip
+    from ltx_jax.utils import device_memory
+
+    # 16 GB devices: one runs distilled int4, eight pool enough for dev
+    monkeypatch.setattr(device_memory, "device_memory_gb",
+                        lambda device=None: 16.0)
+    monkeypatch.setattr("jax.devices", lambda *a: [object()])  # one device
     args = parse(["generate", "x", "--model", "auto"])
     assert _effective_model(args) is LTXModel.DISTILLED
     assert args.transformer_quant == "int4"
@@ -260,8 +278,8 @@ def test_serve_subcommand_parses():
 def test_cmd_serve_wires_pipeline(monkeypatch, tmp_path):
     """cmd_serve loads the pipeline, builds the app, and serves — verified
     with a fake loader + a server whose serve_forever returns at once."""
-    import ltx_tpu.io.cli as cli
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    import ltx_jax.io.cli as cli
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     calls = {}
 
@@ -269,13 +287,13 @@ def test_cmd_serve_wires_pipeline(monkeypatch, tmp_path):
         calls["load"] = kw
         return LTXPipeline.random_tiny(seed=0)
 
-    monkeypatch.setattr("ltx_tpu.pipeline.loader.load_pipeline",
+    monkeypatch.setattr("ltx_jax.pipeline.loader.load_pipeline",
                         fake_load_pipeline)
     args = parse(["serve", "--port", "0", "--output-dir",
                   str(tmp_path), "--gemma-quant", "int4",
                   "--models-dir", str(tmp_path)])
 
-    import ltx_tpu.serve.app as app_mod
+    import ltx_jax.serve.app as app_mod
 
     real_build = app_mod.build_app
 
@@ -285,10 +303,24 @@ def test_cmd_serve_wires_pipeline(monkeypatch, tmp_path):
         monkeypatch.setattr(app.server, "serve_forever", lambda: None)
         return app
 
-    monkeypatch.setattr("ltx_tpu.serve.app.build_app", fake_build)
+    monkeypatch.setattr("ltx_jax.serve.app.build_app", fake_build)
+    from ltx_jax.models import gemma3
+    from ltx_jax.utils import device_memory
+
+    # an 80 GB card: --model auto and the enhance batch follow its memory
+    monkeypatch.setattr(device_memory, "device_memory_gb",
+                        lambda device=None: 60.0)
     assert cli.cmd_serve(args) == 0
     assert calls["load"]["gemma_quant"] == "int4"
-    assert calls["max_batch"] == 16  # int4 auto HBM bound
+    pipe = LTXPipeline.random_tiny(seed=0)
+    assert calls["max_batch"] == device_memory.batch_rows_that_fit(
+        60.0, device_memory.tree_gb(pipe.gemma_params),
+        gemma3.enhance_row_gb(pipe.gcfg), 64)
+    # a device without a limit needs --max-batch
+    monkeypatch.setattr(device_memory, "device_memory_gb",
+                        lambda device=None: None)
+    monkeypatch.setattr(cli, "_effective_model", lambda a: None)
+    assert cli.cmd_serve(args) == 2
 
 
 def test_cmd_enhance_batched_dispatch(tmp_path, monkeypatch, capsys):
@@ -299,9 +331,9 @@ def test_cmd_enhance_batched_dispatch(tmp_path, monkeypatch, capsys):
     import jax
     import jax.numpy as jnp
 
-    from ltx_tpu.io import cli
-    from ltx_tpu.models import gemma3
-    from ltx_tpu.weights import keymaps
+    from ltx_jax.io import cli
+    from ltx_jax.models import gemma3
+    from ltx_jax.weights import keymaps
 
     cfg = gemma3.Gemma3Config(
         hidden_size=32, hidden_layers=2, attention_heads=4, kv_heads=2,
@@ -329,12 +361,17 @@ def test_cmd_enhance_batched_dispatch(tmp_path, monkeypatch, capsys):
          "head_dim": 8, "intermediate_size": 64, "vocab_size": 64,
          "sliding_window": 8}))
 
-    monkeypatch.setattr("ltx_tpu.pipeline.loader.load_tokenizer",
+    monkeypatch.setattr("ltx_jax.pipeline.loader.load_tokenizer",
                         lambda d: FakeTok())
-    monkeypatch.setattr("ltx_tpu.weights.download.load_safetensors_dir",
+    monkeypatch.setattr("ltx_jax.weights.download.load_safetensors_dir",
                         lambda d: {"raw": True})
     monkeypatch.setattr(keymaps, "load_gemma_params",
                         lambda tensors, nl, mode, **kw: params)
+    from ltx_jax.utils import device_memory
+
+    # the batch bound comes from the device's memory (an 80 GB card)
+    monkeypatch.setattr(device_memory, "device_memory_gb",
+                        lambda device=None: 60.0)
 
     pfile = tmp_path / "prompts.txt"
     pfile.write_text("a dog on a hill\n\n")
@@ -358,7 +395,7 @@ def test_cmd_enhance_batched_dispatch(tmp_path, monkeypatch, capsys):
     def boom(*a, **kw):
         raise RuntimeError("RESOURCE_EXHAUSTED (simulated)")
 
-    monkeypatch.setattr("ltx_tpu.models.gemma3.generate_tokens_batched",
+    monkeypatch.setattr("ltx_jax.models.gemma3.generate_tokens_batched",
                         boom)
     rc = cli.main(["enhance", "a cat", "--gemma-path", str(gdir)])
     assert rc == 1
@@ -370,8 +407,8 @@ def test_cmd_train_e2e(tmp_path, capsys):
     the inference LoRA fusion path."""
     import numpy as np
 
-    from ltx_tpu.core.config import TransformerConfig
-    from ltx_tpu.train.data import write_shard
+    from ltx_jax.core.config import TransformerConfig
+    from ltx_jax.train.data import write_shard
 
     cfg = TransformerConfig().tiny()
     data = tmp_path / "shards"
@@ -396,8 +433,8 @@ def test_cmd_train_e2e(tmp_path, capsys):
     assert out.exists()
     assert "TRAIN LORA OK" in capsys.readouterr().out
 
-    from ltx_tpu.lora import fuse
-    from ltx_tpu.weights.download import load_safetensors
+    from ltx_jax.lora import fuse
+    from ltx_jax.weights.download import load_safetensors
 
     layers = fuse.parse_lora(load_safetensors(out))
     assert len(layers) == cfg.num_layers * 10
@@ -409,10 +446,10 @@ def test_cmd_generate_v2v_dispatch(tmp_path, monkeypatch):
     resampled, SDEdit tail denoised, MP4 written."""
     import numpy as np
 
-    from ltx_tpu.io import cli
-    from ltx_tpu.io.video import export_video
-    from ltx_tpu.pipeline import loader
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    from ltx_jax.io import cli
+    from ltx_jax.io.video import export_video
+    from ltx_jax.pipeline import loader
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     clip = np.random.default_rng(1).uniform(size=(9, 64, 64, 3)) \
         .astype(np.float32)

@@ -7,14 +7,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.ops.latents import VideoLatentShape
-from ltx_tpu.pipeline.denoise import (
+from ltx_jax.ops.latents import VideoLatentShape
+from ltx_jax.pipeline.denoise import (
     GuidanceSpec,
     make_denoise_step,
     run_denoise_loop,
 )
-from ltx_tpu.pipeline.generate import LTXPipeline
-from ltx_tpu.utils import diagnostics
+from ltx_jax.pipeline.generate import LTXPipeline
+from ltx_jax.utils import diagnostics
 
 
 def test_diag_stats_format(monkeypatch):
@@ -85,3 +85,15 @@ def test_checkpoint_sigma_mismatch_restarts(tmp_path):
                            np.asarray([1.0, 0.5, 0.0], np.float32),
                            checkpoint=ckpt)
     assert out.shape == shape.shape
+
+def test_device_sync_blocks_on_device_and_host_trees():
+    """device_sync waits with block_until_ready on any pytree; host arrays
+    and scalars pass straight through."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from ltx_jax.utils.diagnostics import device_sync
+
+    tree = {"a": jnp.arange(4) * 2, "b": np.ones(3), "c": 1.0}
+    assert device_sync(tree) is None
+    assert tree["a"].is_ready()

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import TransformerConfig
-from ltx_tpu.models import dit
-from ltx_tpu.ops import rope as rope_ops
+from ltx_jax.core.config import TransformerConfig
+from ltx_jax.models import dit
+from ltx_jax.ops import rope as rope_ops
 
 CFG = TransformerConfig().tiny()  # 2 layers, 4 heads x 32 = 128 inner
 
@@ -41,8 +41,8 @@ def test_scan_matches_unrolled(setup):
 
     # Manual unroll using block_forward with per-layer params
     b = latent.shape[0]
-    from ltx_tpu.models.common import linear
-    from ltx_tpu.ops.normalization import layer_norm_no_affine
+    from ltx_jax.models.common import linear
+    from ltx_jax.ops.normalization import layer_norm_no_affine
 
     x = linear(params["patchify_proj"], latent)
     ts_emb, embedded = dit.prepare_timestep(params, ts, b, CFG, latent.dtype)
@@ -106,7 +106,7 @@ def test_cross_attention_scale(setup):
 
 def test_context_mask_bias(setup):
     """Masking out pad tokens must change the output; all-ones mask must not."""
-    from ltx_tpu.ops.attention import prepare_additive_mask
+    from ltx_jax.ops.attention import prepare_additive_mask
 
     params, latent, context, ts, pe = setup
     b, s = context.shape[0], context.shape[1]

@@ -11,9 +11,9 @@ from pathlib import Path
 
 import pytest
 
-from ltx_tpu.core.config import LTXModel
-from ltx_tpu.core.errors import DownloadFailedError
-from ltx_tpu.weights import download as dl
+from ltx_jax.core.config import LTXModel
+from ltx_jax.core.errors import DownloadFailedError
+from ltx_jax.weights import download as dl
 
 
 @pytest.fixture
@@ -135,7 +135,7 @@ def test_dev_variant_unified_filename(tmp_path, fake_hub):
 # --- registry (reference: LTXModelRegistry.swift) ---------------------------
 
 def test_registry_status_tracks_downloads(tmp_path, fake_hub):
-    from ltx_tpu.weights import registry as reg
+    from ltx_jax.weights import registry as reg
 
     assert not reg.is_downloaded("unified", str(tmp_path))
     assert reg.missing_files("vae", str(tmp_path)) == [
@@ -157,7 +157,7 @@ def test_registry_status_tracks_downloads(tmp_path, fake_hub):
 def test_registry_inventory_matches_download_layout(tmp_path, fake_hub):
     """Every inventory (subdir, file) pair is exactly where
     download_all_components puts it — the two tables cannot drift."""
-    from ltx_tpu.weights import registry as reg
+    from ltx_jax.weights import registry as reg
 
     dl.download_all_components(LTXModel.DEV, models_dir=str(tmp_path),
                                include_audio=True)
@@ -170,9 +170,13 @@ def test_registry_inventory_matches_download_layout(tmp_path, fake_hub):
 
 
 def test_recommended_model_by_mesh_hbm():
-    from ltx_tpu.weights import registry as reg
+    from ltx_jax.weights import registry as reg
 
-    model, quant = reg.recommended_model(n_devices=1)
+    # a 16 GB device runs distilled int4 alone, and dev bf16 over a mesh
+    model, quant = reg.recommended_model(n_devices=1, memory_per_device_gb=16)
     assert model is LTXModel.DISTILLED and quant == "int4"
-    model, quant = reg.recommended_model(n_devices=8)
+    model, quant = reg.recommended_model(n_devices=8, memory_per_device_gb=16)
+    assert model is LTXModel.DEV and quant is None
+    # one 80 GB card at JAX's default 0.75 share holds 19B bf16
+    model, quant = reg.recommended_model(n_devices=1, memory_per_device_gb=60)
     assert model is LTXModel.DEV and quant is None

@@ -20,10 +20,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import LTXModel
-from ltx_tpu.core.errors import DownloadFailedError
-from ltx_tpu.weights import download as dl
-from ltx_tpu.weights import registry
+from ltx_jax.core.config import LTXModel
+from ltx_jax.core.errors import DownloadFailedError
+from ltx_jax.weights import download as dl
+from ltx_jax.weights import registry
 
 _COMMIT = "0" * 40
 

@@ -2,8 +2,8 @@
 
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig
-from ltx_tpu.core.errors import (
+from ltx_jax.core.config import GenerationConfig
+from ltx_jax.core.errors import (
     InvalidConfigurationError,
     InvalidDimensionsError,
     InvalidFrameCountError,
@@ -41,7 +41,7 @@ def test_typed_errors_are_also_valueerror():
 
 def test_pipeline_raises_model_not_loaded():
     """Survives python -O: not an assert (VERDICT weak: bare asserts)."""
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     pipe = LTXPipeline.random_tiny()
     pipe.gemma_params = None
@@ -68,7 +68,7 @@ def test_pipeline_raises_model_not_loaded():
 
 
 def test_cli_prints_message_not_traceback(capsys):
-    from ltx_tpu.io.cli import main
+    from ltx_jax.io.cli import main
 
     rc = main(["generate", "x", "--dry-run", "-w", "100"])
     assert rc == 2

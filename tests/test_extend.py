@@ -18,11 +18,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig
-from ltx_tpu.core.errors import InvalidConfigurationError
-from ltx_tpu.ops.latents import VideoLatentShape, generate_noise
-from ltx_tpu.pipeline.denoise import build_guidance_context, make_denoise_step
-from ltx_tpu.pipeline.generate import GuidanceSpec, LTXPipeline
+from ltx_jax.core.config import GenerationConfig
+from ltx_jax.core.errors import InvalidConfigurationError
+from ltx_jax.ops.latents import VideoLatentShape, generate_noise
+from ltx_jax.pipeline.denoise import build_guidance_context, make_denoise_step
+from ltx_jax.pipeline.generate import GuidanceSpec, LTXPipeline
 
 
 def _cfg(**kw):
@@ -152,7 +152,7 @@ def test_extension_mechanism(pipe):
 def test_extension_takes_the_clip_tail(pipe, tmp_path):
     """The file path uses the input's LAST cond_frames frames (an
     extension continues the end of a clip, not a resample of it)."""
-    from ltx_tpu.io.video import export_video, load_video
+    from ltx_jax.io.video import export_video, load_video
 
     rng = np.random.default_rng(5)
     clip = rng.uniform(size=(24, 64, 64, 3)).astype(np.float32)
@@ -231,7 +231,7 @@ def test_av_extension_multi_frame_tail(pipe_av):
     clip9 = _clip(9)
     cfg = _cfg()
     seen = {}
-    import ltx_tpu.pipeline.denoise as dn
+    import ltx_jax.pipeline.denoise as dn
     orig = dn.make_av_denoise_step
 
     def spy(*a, **kw):
@@ -241,7 +241,7 @@ def test_av_extension_multi_frame_tail(pipe_av):
         return orig(*a, **kw)
 
     # generate_video_with_audio imports make_av_denoise_step locally from
-    # ltx_tpu.pipeline.denoise — patch the source module
+    # ltx_jax.pipeline.denoise — patch the source module
     dn.make_av_denoise_step = spy
     try:
         r = pipe_av.generate_video_with_audio("a fox", cfg,
@@ -281,9 +281,9 @@ def test_av_extension_validation(pipe_av):
 def test_cmd_generate_extend_audio_dispatch(tmp_path, monkeypatch):
     """`generate --extend-video in.mp4 --audio` routes through the AV
     twin and writes MP4 + side WAV."""
-    from ltx_tpu.io import cli
-    from ltx_tpu.io.video import export_video
-    from ltx_tpu.pipeline import loader
+    from ltx_jax.io import cli
+    from ltx_jax.io.video import export_video
+    from ltx_jax.pipeline import loader
 
     clip = np.random.default_rng(1).uniform(size=(24, 64, 64, 3)) \
         .astype(np.float32)
@@ -312,9 +312,9 @@ def test_serve_extend_audio_job_http(pipe_av, tmp_path):
     import os
     import urllib.request
 
-    from ltx_tpu.io.video import export_video
-    from ltx_tpu.serve.app import build_app
-    from ltx_tpu.serve.server import serve_forever_threaded
+    from ltx_jax.io.video import export_video
+    from ltx_jax.serve.app import build_app
+    from ltx_jax.serve.server import serve_forever_threaded
 
     root = tmp_path / "media"
     root.mkdir()
@@ -347,9 +347,9 @@ def test_serve_extend_audio_job_http(pipe_av, tmp_path):
 def test_cmd_generate_extend_dispatch(tmp_path, monkeypatch):
     """`generate --extend-video in.mp4 --cond-frames 9` end-to-end through
     cmd_generate with a tiny pipeline."""
-    from ltx_tpu.io import cli
-    from ltx_tpu.io.video import export_video
-    from ltx_tpu.pipeline import loader
+    from ltx_jax.io import cli
+    from ltx_jax.io.video import export_video
+    from ltx_jax.pipeline import loader
 
     clip = np.random.default_rng(1).uniform(size=(24, 64, 64, 3)) \
         .astype(np.float32)

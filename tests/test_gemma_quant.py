@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.kernels.quantization import dequantize_weight
-from ltx_tpu.models import gemma3
-from ltx_tpu.weights import keymaps
+from ltx_jax.kernels.quantization import dequantize_weight
+from ltx_jax.models import gemma3
+from ltx_jax.weights import keymaps
 
 
 def _mlx_pack(q_vals, scales, biases):
@@ -43,7 +43,7 @@ def test_gemma_forward_with_quantized_layers():
     cfg = gemma3.Gemma3Config().tiny()
     params = gemma3.init_params(jax.random.key(0), cfg, jnp.float32)
 
-    from ltx_tpu.kernels.quantization import quantize_linear_params
+    from ltx_jax.kernels.quantization import quantize_linear_params
 
     qlayers = dict(params["layers"])
     for name in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
@@ -65,8 +65,8 @@ def test_gemma_forward_with_quantized_layers():
     assert corr > 0.99, f"quantized gemma diverged: corr={corr}"
 
 def test_int8_matmul_matches_dequant_reference():
-    """W8A8 per-channel: int8 MXU dot + rescale vs explicit f32 product."""
-    from ltx_tpu.kernels.quantization import (
+    """W8A8 per-channel: s8 x s8 dot + rescale vs explicit f32 product."""
+    from ltx_jax.kernels.quantization import (
         int8_matmul, requant_int8_channel_np,
     )
 
@@ -89,7 +89,7 @@ def test_int8_matmul_matches_dequant_reference():
 
 def test_int8_requant_from_int4_leaf():
     """requant accepts an int4-group-quantized leaf directly."""
-    from ltx_tpu.kernels.quantization import (
+    from ltx_jax.kernels.quantization import (
         dequantize_weight_np, quantize_linear_params,
         requant_int8_channel_np,
     )
@@ -149,7 +149,7 @@ def test_gemma_generate_w8a8():
     """Device-side generation runs with int8 leaves (scan-stability path)."""
     cfg = gemma3.Gemma3Config().tiny()
     params = gemma3.init_params(jax.random.key(1), cfg, jnp.float32)
-    from ltx_tpu.kernels.quantization import requant_int8_channel_np
+    from ltx_jax.kernels.quantization import requant_int8_channel_np
 
     qlayers = dict(params["layers"])
     for name in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",

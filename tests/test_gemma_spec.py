@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.models import gemma3
+from ltx_jax.models import gemma3
 
 
 @pytest.fixture(scope="module")
@@ -156,7 +156,7 @@ def test_spec_accept_preserves_distribution():
 
 def test_spec_with_w8a8_leaves():
     """The verify bundle runs through quantized projection leaves too."""
-    from ltx_tpu.kernels.quantization import requant_int8_channel_np
+    from ltx_jax.kernels.quantization import requant_int8_channel_np
 
     cfg = gemma3.Gemma3Config().tiny()
     params = gemma3.init_params(jax.random.key(1), cfg, jnp.float32)
@@ -239,7 +239,7 @@ def test_batched_sampled_rows_valid(tiny):
 
 def test_enhance_prompts_batched_roundtrip(tiny):
     """Pipeline-level batched enhancement drives tokenize->generate->clean."""
-    from ltx_tpu.pipeline import enhance
+    from ltx_jax.pipeline import enhance
 
     cfg, params = tiny
 
@@ -327,7 +327,7 @@ def test_batched_spec_with_w8a8_leaves():
     """Batched + speculative through quantized projection leaves: per-row
     bundle bases drive the vectorized KV writes while every matmul routes
     through the int8 path."""
-    from ltx_tpu.kernels.quantization import requant_int8_channel_np
+    from ltx_jax.kernels.quantization import requant_int8_channel_np
 
     cfg = gemma3.Gemma3Config().tiny()
     params = gemma3.init_params(jax.random.key(1), cfg, jnp.float32)

@@ -19,8 +19,8 @@ import pathlib
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig
-from ltx_tpu.pipeline.generate import LTXPipeline
+from ltx_jax.core.config import GenerationConfig
+from ltx_jax.pipeline.generate import LTXPipeline
 
 GOLDEN_DIR = pathlib.Path(__file__).parent / "goldens"
 

@@ -6,7 +6,7 @@ import wave
 import numpy as np
 import pytest
 
-from ltx_tpu.io.video import (
+from ltx_jax.io.video import (
     VideoExportConfig,
     export_video,
     export_wav,
@@ -76,7 +76,7 @@ def test_frames_to_uint8_device_matches_host():
     import jax
     import jax.numpy as jnp
 
-    from ltx_tpu.io.video import frames_to_uint8
+    from ltx_jax.io.video import frames_to_uint8
 
     host = np.random.default_rng(0).uniform(size=(3, 16, 16, 3)) \
         .astype(np.float32)

@@ -17,11 +17,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig
-from ltx_tpu.core.errors import InvalidConfigurationError
-from ltx_tpu.ops.latents import VideoLatentShape, generate_noise
-from ltx_tpu.pipeline.denoise import build_guidance_context, make_denoise_step
-from ltx_tpu.pipeline.generate import GuidanceSpec, LTXPipeline
+from ltx_jax.core.config import GenerationConfig
+from ltx_jax.core.errors import InvalidConfigurationError
+from ltx_jax.ops.latents import VideoLatentShape, generate_noise
+from ltx_jax.pipeline.denoise import build_guidance_context, make_denoise_step
+from ltx_jax.pipeline.generate import GuidanceSpec, LTXPipeline
 
 
 def _cfg(**kw):
@@ -177,8 +177,8 @@ def test_cmd_generate_keyframes_dispatch(tmp_path, monkeypatch):
     through cmd_generate with a tiny pipeline; malformed spec exits 2."""
     from PIL import Image
 
-    from ltx_tpu.io import cli
-    from ltx_tpu.pipeline import loader
+    from ltx_jax.io import cli
+    from ltx_jax.pipeline import loader
 
     rng = np.random.default_rng(9)
     for name in ("a.png", "b.png"):
@@ -214,8 +214,8 @@ def test_serve_keyframes_job_http(pipe, tmp_path):
 
     from PIL import Image
 
-    from ltx_tpu.serve.app import build_app
-    from ltx_tpu.serve.server import serve_forever_threaded
+    from ltx_jax.serve.app import build_app
+    from ltx_jax.serve.server import serve_forever_threaded
 
     root = tmp_path / "media"
     root.mkdir()

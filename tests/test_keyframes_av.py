@@ -18,16 +18,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig
-from ltx_tpu.core.errors import InvalidConfigurationError
-from ltx_tpu.ops.latents import VideoLatentShape
-from ltx_tpu.pipeline import generate as gen_mod
-from ltx_tpu.pipeline.denoise import (
+from ltx_jax.core.config import GenerationConfig
+from ltx_jax.core.errors import InvalidConfigurationError
+from ltx_jax.ops.latents import VideoLatentShape
+from ltx_jax.pipeline import generate as gen_mod
+from ltx_jax.pipeline.denoise import (
     GuidanceSpec,
     build_guidance_context,
     make_av_denoise_step,
 )
-from ltx_tpu.pipeline.generate import LTXPipeline
+from ltx_jax.pipeline.generate import LTXPipeline
 
 
 def _cfg(**kw):
@@ -84,7 +84,7 @@ def test_av_step_injects_and_carries_at_arbitrary_positions(pipe_av):
     conditioned VIDEO frames at {0, 2} equal clean + scale * normal *
     sigma^2 after every step; unconditioned frames and AUDIO still step."""
     cfg = _cfg(num_frames=33)  # 5 latent frames
-    from ltx_tpu.models import dit_av
+    from ltx_jax.models import dit_av
 
     shape = VideoLatentShape.from_pixels(
         1, cfg.num_frames, cfg.height, cfg.width,
@@ -135,7 +135,7 @@ def test_av_step_injects_and_carries_at_arbitrary_positions(pipe_av):
 
 
 def test_av_step_cond_frame_idx_validation(pipe_av):
-    from ltx_tpu.models import dit_av
+    from ltx_jax.models import dit_av
 
     cfg = _cfg()
     shape = VideoLatentShape.from_pixels(
@@ -234,7 +234,7 @@ def test_serve_anchor_and_av_keyframe_validation():
     """Submit-time validation for the new request surface: chain 'anchors'
     (segment range, tail overlap, audio exclusion, keyframe rules) and
     keyframes+audio."""
-    from ltx_tpu.serve.app import request_to_config
+    from ltx_jax.serve.app import request_to_config
 
     base = {"kind": "chain", "prompt": "x", "segments": 2,
             "cond_frames": 9, "width": 64, "height": 64, "num_frames": 17,
@@ -271,8 +271,8 @@ def test_cli_chain_anchor_and_av_keyframes(tmp_path, monkeypatch):
     through cmd_generate; malformed specs exit 2."""
     from PIL import Image
 
-    from ltx_tpu.io import cli
-    from ltx_tpu.pipeline import loader
+    from ltx_jax.io import cli
+    from ltx_jax.pipeline import loader
 
     rng = np.random.default_rng(9)
     img = tmp_path / "a.png"
@@ -313,7 +313,7 @@ def test_av_chain_anchor(pipe_av):
     """AV chain per-segment anchors (round 5 symmetry): the anchored
     segment builds its own AV step with cond_frame_idx = tail + anchor
     indices; output finite with the stitched length; waveform present."""
-    import ltx_tpu.pipeline.denoise as dn
+    import ltx_jax.pipeline.denoise as dn
 
     cfg = _cfg(num_frames=17, image_cond_noise_scale=0.15)
     calls = []
@@ -343,8 +343,8 @@ def test_cli_chain_flag_guards(tmp_path, monkeypatch):
     """Chain-only flags must fail loudly without --chain (self-review r5):
     silently producing an unanchored/unrenormed T2V was the same defect
     class as the --chain 0 fallthrough."""
-    from ltx_tpu.io import cli
-    from ltx_tpu.pipeline import loader
+    from ltx_jax.io import cli
+    from ltx_jax.pipeline import loader
 
     monkeypatch.setattr(loader, "load_pipeline",
                         lambda **kw: LTXPipeline.random_tiny(seed=0))

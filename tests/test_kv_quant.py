@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.models import gemma3
+from ltx_jax.models import gemma3
 
 
 CFG = gemma3.Gemma3Config().tiny()
@@ -147,7 +147,7 @@ def test_hidden_states_with_int8_embed(params):
 
 def test_load_gemma_params_embed_int8(tmp_path):
     import tests.weight_fixtures as wf
-    from ltx_tpu.weights import keymaps
+    from ltx_jax.weights import keymaps
 
     spec = wf.gemma_spec(layers=CFG.hidden_layers, hidden=CFG.hidden_size,
                          heads=CFG.attention_heads, kv_heads=CFG.kv_heads,
@@ -170,8 +170,7 @@ def test_load_gemma_params_embed_int8(tmp_path):
 
 
 def test_generate_batched_with_int8_embed(params):
-    # the batched decode hands _lm_head a 3-D (B, m, hidden) activation —
-    # caught on-chip by scripts/batch_probe.py --embed-int8
+    # the batched decode hands _lm_head a 3-D (B, m, hidden) activation
     q = _int8_embed(params)
     prompts = [list(range(5, 12)), list(range(30, 34))]
     outs = gemma3.generate_tokens_batched(

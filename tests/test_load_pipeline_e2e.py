@@ -19,14 +19,14 @@ import pytest
 from safetensors.numpy import save_file
 
 import tests.weight_fixtures as wf
-from ltx_tpu.core.config import (
+from ltx_jax.core.config import (
     GenerationConfig,
     LTXModel,
     MemoryConfig,
     QuantizationConfig,
     TransformerConfig,
 )
-from ltx_tpu.models import gemma3, text_encoder, vae
+from ltx_jax.models import gemma3, text_encoder, vae
 
 
 def _tiny_configs():
@@ -123,7 +123,7 @@ def _write_models_dir(tmp_path):
               str(base / "ltx-vae" / "diffusion_pytorch_model.safetensors"))
     (base / "ltx-vae" / "config.json").write_text(
         json.dumps({"timestep_conditioning": False}))
-    from ltx_tpu.weights.download import DISTILLED_LORA_FILE
+    from ltx_jax.weights.download import DISTILLED_LORA_FILE
     from pathlib import Path as _P
 
     save_file({"dummy.lora_down.weight": np.zeros((2, 4), np.float32),
@@ -133,7 +133,7 @@ def _write_models_dir(tmp_path):
 
 
 def _load(base, cfgs, **kw):
-    from ltx_tpu.pipeline.loader import load_pipeline
+    from ltx_jax.pipeline.loader import load_pipeline
 
     tcfg, gcfg, tecfg, vcfg = cfgs
     return load_pipeline(
@@ -176,7 +176,7 @@ def test_int4_quant_cache_hit_skips_requantize(models_dir, monkeypatch):
     base, cfgs = models_dir
     q = QuantizationConfig(mode="int4")
     pipe1 = _load(base, cfgs, quantization=q, gemma_quant="bf16")
-    from ltx_tpu.weights import qcache
+    from ltx_jax.weights import qcache
 
     unified = (base / "ltx-distilled"
                / LTXModel.DISTILLED.unified_weights_filename)
@@ -185,13 +185,13 @@ def test_int4_quant_cache_hit_skips_requantize(models_dir, monkeypatch):
     assert not gcache.exists()  # bf16 gemma is never cached
 
     # second load MUST come from the cache: re-quantizing now fails loudly
-    import ltx_tpu.kernels.quantization as qz
+    import ltx_jax.kernels.quantization as qz
 
     def boom(*a, **kw):
         raise AssertionError("cache miss: quantize_dit_params re-ran")
 
     monkeypatch.setattr(qz, "quantize_dit_params", boom)
-    import ltx_tpu.pipeline.loader as loader_mod
+    import ltx_jax.pipeline.loader as loader_mod
 
     monkeypatch.setattr(loader_mod, "quantize_dit_params", boom,
                         raising=False)
@@ -221,9 +221,9 @@ def _write_full_models_dir(tmp_path):
     assemble, at tiny-but-structurally-real shapes."""
     from pathlib import Path as _P
 
-    from ltx_tpu.models import audio_vae as av_mod
-    from ltx_tpu.models import upscaler as up_mod
-    from ltx_tpu.weights.download import (
+    from ltx_jax.models import audio_vae as av_mod
+    from ltx_jax.models import upscaler as up_mod
+    from ltx_jax.weights.download import (
         AUDIO_VAE_FILE, UPSCALER_FILE, VOCODER_FILE,
     )
 
@@ -342,7 +342,7 @@ def test_files_to_frames_tp_sharded(models_dir):
     a real multi-chip deployment always runs both)."""
     import jax
 
-    from ltx_tpu.parallel.sharding import make_mesh
+    from ltx_jax.parallel.sharding import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import TransformerConfig
-from ltx_tpu.kernels.quantization import dequantize_weight, quantize_dit_params
-from ltx_tpu.lora import fuse
-from ltx_tpu.models import dit
+from ltx_jax.core.config import TransformerConfig
+from ltx_jax.kernels.quantization import dequantize_weight, quantize_dit_params
+from ltx_jax.lora import fuse
+from ltx_jax.models import dit
 
 CFG = TransformerConfig().tiny()
 
@@ -201,9 +201,9 @@ def test_lora_config_scheduler_overrides():
 
     import numpy as np
 
-    from ltx_tpu.core.config import GenerationConfig
-    from ltx_tpu.lora.fuse import LoRAConfig, LoRASchedulerOverrides
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    from ltx_jax.core.config import GenerationConfig
+    from ltx_jax.lora.fuse import LoRAConfig, LoRASchedulerOverrides
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     ov = LoRASchedulerOverrides(num_steps=4, guidance_scale=1.0,
                                 sigmas=(1.0, 0.6, 0.3))

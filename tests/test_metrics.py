@@ -8,12 +8,12 @@ import urllib.request
 
 import pytest
 
-from ltx_tpu.serve.batcher import MicroBatcher
-from ltx_tpu.serve.jobs import JobQueue
-from ltx_tpu.serve.metrics import (
+from ltx_jax.serve.batcher import MicroBatcher
+from ltx_jax.serve.jobs import JobQueue
+from ltx_jax.serve.metrics import (
     Counter, Gauge, Histogram, Registry, ServeMetrics,
 )
-from ltx_tpu.serve.server import (
+from ltx_jax.serve.server import (
     enhance_group_key, make_server, serve_forever_threaded,
 )
 
@@ -158,7 +158,7 @@ def test_metrics_endpoint_scrape(metrics_app):
 def test_route_label_closed_set():
     """Label cardinality is bounded by a CLOSED route set: job ids collapse
     to one template and arbitrary (scanned-404) paths collapse to "other"."""
-    from ltx_tpu.serve.server import _route_label
+    from ltx_jax.serve.server import _route_label
 
     assert _route_label("/v1/jobs/abc-123") == "/v1/jobs/{id}"
     assert _route_label("/v1/enhance?verbose=1") == "/v1/enhance"

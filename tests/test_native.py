@@ -11,8 +11,8 @@ import ml_dtypes
 import numpy as np
 import pytest
 
-from ltx_tpu import native
-from ltx_tpu.kernels import quantization as Q
+from ltx_jax import native
+from ltx_jax.kernels import quantization as Q
 
 bf16 = ml_dtypes.bfloat16
 
@@ -108,7 +108,7 @@ def test_bf16_to_f32_exact():
 
 
 def test_keymaps_transpose_routes_native():
-    from ltx_tpu.weights.keymaps import _t
+    from ltx_jax.weights.keymaps import _t
 
     w = _rand((48, 96), bf16, seed=2)
     assert np.array_equal(_t(w).view(np.uint16),
@@ -118,7 +118,7 @@ def test_keymaps_transpose_routes_native():
 def test_mlx_repack_still_exact_with_native_transpose():
     # _repack_mlx_4bit now routes its uint8/scale transposes through the
     # native kernel; the repack must stay losslessly identical.
-    from ltx_tpu.weights import keymaps as KM
+    from ltx_jax.weights import keymaps as KM
 
     rng = np.random.default_rng(4)
     o, d_in, g = 16, 128, 64

@@ -1,9 +1,8 @@
-"""Pallas kernel parity via the interpreter (CPU CI coverage).
+"""Flash-attention kernel parity via the Pallas interpreter (CPU coverage).
 
-VERDICT r1 weak #4: both kernels were gated on a TPU backend, so the CPU
-suite never exercised the real kernel logic. `interpret=True` runs the
-actual Pallas programs through the interpreter and diffs them against the
-XLA reference paths.
+The kernels compile through Triton for GPUs only; `interpret=True` runs the
+same Pallas programs through the interpreter and diffs them against the XLA
+reference paths.
 """
 
 import jax
@@ -11,13 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.kernels.flash_attention import flash_attention
-from ltx_tpu.kernels.quantization import (
-    dequantize_weight,
-    int4_matmul,
-    quantize_weight,
-)
-from ltx_tpu.ops.attention import _xla_sdpa
+from ltx_jax.kernels.flash_attention import flash_attention
+from ltx_jax.ops.attention import _xla_sdpa
 
 
 def _qkv(key, b, h, tq, tk, d, dtype=jnp.float32):
@@ -80,43 +74,6 @@ def test_flash_attention_scale_interpret():
                                atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("m,k,n,group", [
-    (128, 256, 256, 64),   # single k block
-    (128, 512, 256, 64),   # multi k block accumulation
-    (130, 256, 256, 32),   # m padding path + different group size
-])
-def test_int4_matmul_interpret_matches_dequant(m, k, n, group):
-    keyw, keyx = jax.random.split(jax.random.key(5))
-    w = jax.random.normal(keyw, (k, n), jnp.float32)
-    qp = quantize_weight(w, bits=4, group_size=group)
-    x = jax.random.normal(keyx, (m, k), jnp.float32).astype(jnp.bfloat16)
-
-    out = int4_matmul(qp, x, interpret=True)
-    wd = dequantize_weight(qp, jnp.bfloat16)
-    ref = jnp.dot(x, wd, preferred_element_type=jnp.float32).astype(
-        jnp.bfloat16)
-    np.testing.assert_allclose(
-        np.asarray(out, np.float32), np.asarray(ref, np.float32),
-        atol=2e-2, rtol=2e-2)
-
-
-def test_int4_matmul_interpret_exact_roundtrip():
-    """Integer-exact weights: the fused kernel must be EXACT, catching any
-    unpack-order regression in the block-plane format."""
-    rng = np.random.default_rng(0)
-    k, n = 256, 256
-    scale = np.ones((k // 64, n), np.float32)
-    bias = np.zeros((k // 64, n), np.float32)
-    q8 = rng.integers(0, 16, (k, n), dtype=np.uint8)
-    from ltx_tpu.kernels.quantization import pack_int4
-
-    qp = {"w_q4": jnp.asarray(pack_int4(jnp.asarray(q8))),
-          "scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
-    x = jnp.eye(k, dtype=jnp.bfloat16)[:128]  # selector rows
-    out = np.asarray(int4_matmul(qp, x, interpret=True), np.float32)
-    np.testing.assert_array_equal(out, q8[:128].astype(np.float32))
-
-
 def test_gqa_sdpa_matches_repeated_kv():
     """Grouped-query attention (no KV repeat) == repeat-then-SDPA, with
     1-head and full (B,1,Tq,Tk) biases."""
@@ -124,7 +81,7 @@ def test_gqa_sdpa_matches_repeated_kv():
     import jax.numpy as jnp
     import numpy as np
 
-    from ltx_tpu.ops.attention import _gqa_sdpa, _xla_sdpa, sdpa
+    from ltx_jax.ops.attention import _gqa_sdpa, _xla_sdpa, sdpa
 
     b, h, hkv, tq, tk, d = 2, 8, 2, 16, 48, 32
     ks = jax.random.split(jax.random.key(0), 3)
@@ -159,7 +116,7 @@ def test_gqa_sdpa_matches_repeated_kv():
 
 
 def _flash_grads(q, k, v, bias, block_q, block_k):
-    from ltx_tpu.kernels.flash_attention import flash_attention_vjp
+    from ltx_jax.kernels.flash_attention import flash_attention_vjp
 
     def loss(args):
         qq, kk, vv = args
@@ -228,7 +185,7 @@ def test_flash_backward_4d_bias():
 
 
 def test_flash_vjp_primal_matches_forward():
-    from ltx_tpu.kernels.flash_attention import flash_attention_vjp
+    from ltx_jax.kernels.flash_attention import flash_attention_vjp
 
     q, k, v = _qkv(jax.random.key(5), 1, 2, 32, 32, 16)
     out = flash_attention_vjp(q, k, v, None, None, 16, 16, True)
@@ -236,140 +193,115 @@ def test_flash_vjp_primal_matches_forward():
     np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
 
-# ---------------------------------------------------------------- rms norm
+# ------------------------------------------- wrapper: tiles, padding, bias
 
-def _assert_rms_close(got, want):
-    """Same f32 expression on both paths; only the mean's reduction order
-    differs between the interpreter and XLA -> 1-2 ulp in f32, which the
-    bf16 output cast usually (not always) rounds away — allow one ulp of
-    the OUTPUT dtype."""
-    rtol = 1e-2 if got.dtype == jnp.bfloat16 else 1e-5
+
+@pytest.mark.parametrize("block,t,want", [
+    (128, 10, 16),      # short sequence: next power of two, at least 16
+    (128, 100, 128),
+    (128, 6144, 128),
+    (32, 40, 32),
+    (64, 3, 16),
+])
+def test_flash_tile_is_power_of_two(block, t, want):
+    from ltx_jax.kernels.flash_attention import _block
+
+    assert _block(block, t) == want
+
+
+@pytest.mark.parametrize("tq,tk", [(17, 33), (48, 16), (16, 47), (1, 20)])
+def test_flash_padding_shapes_interpret(tq, tk):
+    """Tq/Tk off the tile: padded q rows are sliced off and padded keys get
+    a -1e30 bias, so the output equals plain SDPA at the original shape."""
+    q, k, v = _qkv(jax.random.key(tq * 100 + tk), 1, 2, tq, tk, 16)
+    out = flash_attention(q, k, v, block_q=16, block_k=16, interpret=True)
+    assert out.shape == q.shape
+    np.testing.assert_allclose(np.asarray(out), np.asarray(_xla_sdpa(q, k, v)),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("form", ["2d", "4d", "broadcast"])
+def test_flash_key_bias_forms_interpret(form):
+    """A key bias arrives as (B, Tk), (B, 1, 1, Tk), or (1, Tk) broadcast
+    over the batch; each is one per-batch row the kernel loads per k
+    block."""
+    q, k, v = _qkv(jax.random.key(11), 2, 2, 24, 32, 16)
+    row = np.where(np.arange(32) < 27, 0.0, -1e9).astype(np.float32)
+    full = np.stack([row, np.roll(row, -3)])
+    bias = {"2d": jnp.asarray(full),
+            "4d": jnp.asarray(full)[:, None, None, :],
+            "broadcast": jnp.asarray(row)[None]}[form]
+    ref_bias = jnp.asarray(row[None].repeat(2, 0) if form == "broadcast"
+                           else full)[:, None, None, :]
+    out = flash_attention(q, k, v, bias=bias, block_q=16, block_k=16,
+                          interpret=True)
+    np.testing.assert_allclose(np.asarray(out),
+                               np.asarray(_xla_sdpa(q, k, v, bias=ref_bias)),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_flash_rejects_full_mask():
+    """A (B, 1, Tq, Tk) mask is not a key bias: the kernel refuses it."""
+    q, k, v = _qkv(jax.random.key(12), 1, 1, 16, 16, 16)
+    with pytest.raises(ValueError, match="key bias"):
+        flash_attention(q, k, v, bias=jnp.zeros((1, 1, 16, 16)),
+                        interpret=True)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_flash_stats_match_plain_softmax(with_bias):
+    """return_stats gives the row max m and normalizer l of the plain
+    softmax — the statistics ring attention merges."""
+    q, k, v = _qkv(jax.random.key(13), 1, 2, 40, 48, 16)
+    bias = (jnp.where(jnp.arange(48)[None] < 40, 0.0, -1e9)
+            if with_bias else None)
+    out, m, l = flash_attention(q, k, v, bias=bias, block_q=16, block_k=16,
+                                interpret=True, return_stats=True)
+    s = jnp.einsum("bhqd,bhkd->bhqk", q, k) * 16 ** -0.5
+    if with_bias:
+        s = s + bias[:, None, None, :]
+    m_ref = s.max(-1)
+    l_ref = jnp.exp(s - m_ref[..., None]).sum(-1)
+    np.testing.assert_allclose(np.asarray(m), np.asarray(m_ref), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(l), np.asarray(l_ref), rtol=1e-5)
+    assert out.shape == q.shape
+
+
+def test_flash_backward_with_global_lse_sums_to_full_grads():
+    """The gradient rule ring attention relies on: with the GLOBAL
+    log-sum-exp, backward passes over two halves of the keys give dq
+    partials that sum, and dk/dv halves that concatenate, to the full
+    gradients."""
+    from ltx_jax.kernels.flash_attention import flash_backward
+
+    q, k, v = _qkv(jax.random.key(14), 1, 2, 32, 32, 16)
+    g = jax.random.normal(jax.random.key(15), q.shape)
+    o, m, l = flash_attention(q, k, v, block_q=16, block_k=16,
+                              interpret=True, return_stats=True)
+    lse = m + jnp.log(l)
+    scale = 16 ** -0.5
+    parts = [flash_backward(q, k[:, :, s], v[:, :, s], None, o, lse, g,
+                            scale, 16, 16, True)
+             for s in (slice(0, 16), slice(16, 32))]
+    _, vjp = jax.vjp(_xla_sdpa, q, k, v)
+    dq_r, dk_r, dv_r = vjp(g)
+    tol = dict(atol=5e-5, rtol=5e-5)
+    np.testing.assert_allclose(np.asarray(parts[0][0] + parts[1][0]),
+                               np.asarray(dq_r), **tol)
     np.testing.assert_allclose(
-        np.asarray(got, np.float32), np.asarray(want, np.float32),
-        rtol=rtol, atol=1e-6)
+        np.asarray(jnp.concatenate([parts[0][1], parts[1][1]], 2)),
+        np.asarray(dk_r), **tol)
+    np.testing.assert_allclose(
+        np.asarray(jnp.concatenate([parts[0][2], parts[1][2]], 2)),
+        np.asarray(dv_r), **tol)
 
 
-class TestRMSNormPallas:
-    """kernels/rms_norm.py vs ops.normalization.rms_norm (same f32
-    expression, equal up to the mean's reduction order)."""
+def test_flash_vjp_bias_cotangent_is_zero():
+    """The key bias is a mask input: its cotangent is zeros."""
+    from ltx_jax.kernels.flash_attention import flash_attention_vjp
 
-    @pytest.mark.parametrize("shape", [(4, 37, 256), (2, 8, 384), (1, 512)])
-    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-    def test_weightless_matches_xla(self, shape, dtype):
-        from ltx_tpu.kernels.rms_norm import rms_norm_pallas
-        from ltx_tpu.ops.normalization import rms_norm
-
-        x = jax.random.normal(jax.random.key(0), shape, dtype)
-        got = rms_norm_pallas(x, interpret=True)
-        want = rms_norm(x)
-        assert got.dtype == want.dtype
-        _assert_rms_close(got, want)
-
-    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-    def test_weighted_matches_xla(self, dtype):
-        from ltx_tpu.kernels.rms_norm import rms_norm_pallas
-        from ltx_tpu.ops.normalization import rms_norm
-
-        x = jax.random.normal(jax.random.key(1), (3, 100, 256), dtype)
-        w = jax.random.normal(jax.random.key(2), (256,), dtype)
-        got = rms_norm_pallas(x, w, interpret=True)
-        want = rms_norm(x, w)
-        _assert_rms_close(got, want)
-
-    def test_row_padding_tail(self):
-        # 5 rows with block 256 -> pads to 256, slices back
-        from ltx_tpu.kernels.rms_norm import rms_norm_pallas
-        from ltx_tpu.ops.normalization import rms_norm
-
-        x = jax.random.normal(jax.random.key(3), (5, 128), jnp.float32)
-        got = rms_norm_pallas(x, interpret=True)
-        _assert_rms_close(got, rms_norm(x))
-
-    def test_lane_misaligned_raises(self):
-        from ltx_tpu.kernels.rms_norm import rms_norm_pallas
-
-        with pytest.raises(ValueError):
-            rms_norm_pallas(jnp.ones((4, 100)), interpret=True)
-
-    def test_toggle_keeps_xla_on_cpu(self):
-        # set_rms_impl("pallas") must not break CPU runs: the dispatch
-        # requires a TPU backend and silently keeps the XLA path here.
-        from ltx_tpu.ops import normalization
-
-        x = jax.random.normal(jax.random.key(4), (2, 7, 256), jnp.bfloat16)
-        want = normalization.rms_norm(x)
-        normalization.set_rms_impl("pallas")
-        try:
-            got = normalization.rms_norm(x)
-        finally:
-            normalization.set_rms_impl("xla")
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-# --------------------------------------------------------- int4 big-m path
-
-class TestInt4BigM:
-    """Big-m strategy: dequant ONCE via the Pallas kernel + plain MXU dot
-    (the fused kernel re-dequantizes per m-tile; see
-    kernels/quantization.py::BIG_M_DEQUANT_THRESHOLD)."""
-
-    def _qp(self, k=512, n=256, seed=0):
-        w = jax.random.normal(jax.random.key(seed), (k, n), jnp.float32)
-        return quantize_weight(w, 4, k // 64)
-
-    def test_dequant_kernel_matches_xla(self):
-        from ltx_tpu.kernels.quantization import dequant_int4_pallas
-
-        qp = self._qp()
-        got = dequant_int4_pallas(qp["w_q4"], qp["scale"], qp["bias"],
-                                  interpret=True)
-        want = dequantize_weight(qp, jnp.bfloat16)
-        # same f32 affine, but XLA may fuse mul+add to an FMA -> up to one
-        # bf16 ulp after the output cast
-        np.testing.assert_allclose(np.asarray(got, np.float32),
-                                   np.asarray(want, np.float32),
-                                   rtol=1e-2, atol=1e-6)
-
-    def test_dequant_kernel_integer_exact(self):
-        """scale=1, bias=0, integer nibbles: FMA vs mul+add cannot differ —
-        any mismatch is an unpack-order regression."""
-        from ltx_tpu.kernels.quantization import (
-            dequant_int4_pallas, pack_int4,
-        )
-
-        rng = np.random.default_rng(3)
-        k, n = 512, 256
-        q8 = rng.integers(0, 16, (k, n), dtype=np.uint8)
-        got = dequant_int4_pallas(
-            jnp.asarray(pack_int4(jnp.asarray(q8))),
-            jnp.ones((k // 64, n), jnp.float32),
-            jnp.zeros((k // 64, n), jnp.float32), interpret=True)
-        np.testing.assert_array_equal(np.asarray(got, np.float32),
-                                      q8.astype(np.float32))
-
-    def test_bigm_matmul_matches_fused(self, monkeypatch):
-        from ltx_tpu.kernels import quantization as qz
-
-        qp = self._qp()
-        x = jax.random.normal(jax.random.key(1), (384, 512), jnp.bfloat16)
-        fused = int4_matmul(qp, x, interpret=True)
-        monkeypatch.setattr(qz, "BIG_M_DEQUANT_THRESHOLD", 256)
-        big = int4_matmul(qp, x, interpret=True)
-        # same bf16 weights + f32-accumulated dot; only the k-reduction
-        # ordering differs (per-tile accumulate vs one dot)
-        np.testing.assert_allclose(np.asarray(big, np.float32),
-                                   np.asarray(fused, np.float32),
-                                   rtol=2e-2, atol=2e-2)
-
-    def test_bigm_gradient_flows(self, monkeypatch):
-        from ltx_tpu.kernels import quantization as qz
-
-        monkeypatch.setattr(qz, "BIG_M_DEQUANT_THRESHOLD", 128)
-        qp = self._qp()
-        x = jax.random.normal(jax.random.key(2), (256, 512), jnp.float32)
-
-        def loss(xx):
-            return jnp.sum(int4_matmul(qp, xx, interpret=True) ** 2)
-
-        g = jax.grad(loss)(x)
-        assert np.isfinite(np.asarray(g)).all()
+    q, k, v = _qkv(jax.random.key(16), 1, 1, 16, 16, 16)
+    bias = jnp.zeros((1, 16))
+    gb = jax.grad(lambda b: jnp.sum(flash_attention_vjp(
+        q, k, v, b, None, 16, 16, True)))(bias)
+    np.testing.assert_array_equal(np.asarray(gb), 0.0)

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig
-from ltx_tpu.ops.latents import VideoLatentShape
-from ltx_tpu.pipeline.generate import LTXPipeline
+from ltx_jax.core.config import GenerationConfig
+from ltx_jax.ops.latents import VideoLatentShape
+from ltx_jax.pipeline.generate import LTXPipeline
 
 
 @pytest.fixture(scope="module")

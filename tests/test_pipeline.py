@@ -7,15 +7,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig
-from ltx_tpu.ops.latents import VideoLatentShape
-from ltx_tpu.pipeline.denoise import (
+from ltx_jax.core.config import GenerationConfig
+from ltx_jax.ops.latents import VideoLatentShape
+from ltx_jax.pipeline.denoise import (
     GuidanceSpec,
     build_guidance_context,
     make_denoise_step,
     run_denoise_loop,
 )
-from ltx_tpu.pipeline.generate import LTXPipeline
+from ltx_jax.pipeline.generate import LTXPipeline
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +97,7 @@ def test_warm_compile_lowering_matches_real_step(pipe):
     """The abstract-input lowering used by the enhancement-overlapped warm
     compile must be IDENTICAL to what the real denoise phase traces —
     otherwise the warm-up compiles a program that is never hit."""
-    from ltx_tpu.pipeline.denoise import (
+    from ltx_jax.pipeline.denoise import (
         GuidanceSpec, build_guidance_context, make_denoise_step,
     )
 
@@ -130,7 +130,7 @@ def test_warm_vae_lowering_matches_real_decode(pipe):
     _decoder_exec cache key, same argument structs)."""
     import jax
 
-    from ltx_tpu.models import vae as vae_mod
+    from ltx_jax.models import vae as vae_mod
 
     cfg = _tiny_config()
     warm_text = pipe._warm_vae_lowering(cfg).as_text()
@@ -250,7 +250,7 @@ def test_denoise_loop_ge_gamma(pipe):
 
 def test_tp_sharded_matches_single_device(pipe):
     """TP over the 8-device CPU mesh must match unsharded numerics."""
-    from ltx_tpu.parallel.sharding import make_mesh, shard_dit_params
+    from ltx_jax.parallel.sharding import make_mesh, shard_dit_params
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -347,12 +347,12 @@ def test_encode_prompts_staged_releases_gemma(pipe):
 def test_warm_compile_lowering_matches_real_step_on_mesh():
     """MESH warm compile (round 4): the abstract-input lowering now carries
     the real call's NamedShardings (sharding-annotated ShapeDtypeStructs),
-    so v5e-8 runs overlap their denoise compile with enhancement exactly
-    like single-chip — the lowered program must be IDENTICAL to what the
+    so mesh runs overlap their denoise compile with enhancement exactly
+    like single-device runs — the lowered program must be IDENTICAL to what the
     sharded denoise phase traces."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from ltx_tpu.parallel.sharding import make_mesh
+    from ltx_jax.parallel.sharding import make_mesh
 
     mpipe = LTXPipeline.random_tiny(seed=3)
     mpipe.shard(make_mesh(data=2, model=4))
@@ -384,12 +384,12 @@ def test_warm_vae_lowering_matches_real_decode_on_mesh():
     matches the real decode's program."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from ltx_tpu.parallel.sharding import make_mesh
+    from ltx_jax.parallel.sharding import make_mesh
 
     mpipe = LTXPipeline.random_tiny(seed=4)
     mpipe.shard(make_mesh(data=8, model=1))  # model=1 -> sequential decode
     cfg = _tiny_config()
-    from ltx_tpu.models import vae as vae_mod
+    from ltx_jax.models import vae as vae_mod
 
     warm_text = mpipe._warm_vae_lowering(cfg).as_text()
     shape = VideoLatentShape.from_pixels(

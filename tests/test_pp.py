@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import TransformerConfig
-from ltx_tpu.core.errors import InvalidConfigurationError
-from ltx_tpu.models import dit
-from ltx_tpu.ops.attention import prepare_additive_mask
-from ltx_tpu.parallel.pipeline import (
+from ltx_jax.core.config import TransformerConfig
+from ltx_jax.core.errors import InvalidConfigurationError
+from ltx_jax.models import dit
+from ltx_jax.ops.attention import prepare_additive_mask
+from ltx_jax.parallel.pipeline import (
     dit_forward_pp, make_pp_mesh, pp_param_specs, shard_pp_params,
 )
 
@@ -122,8 +122,8 @@ def test_pp_train_step_matches_sequential():
     """TrainConfig.pp_mesh routes the flow-matching loss through the GPipe
     forward; with the same PRNG key the updated params must equal the
     sequential step's."""
-    from ltx_tpu.train import TrainConfig
-    from ltx_tpu.train.step import init_train_state, make_train_step
+    from ltx_jax.train import TrainConfig
+    from ltx_jax.train.step import init_train_state, make_train_step
 
     params, latent, context, _ts, pe, bias = _inputs()
     mesh = make_pp_mesh(data=1, pipe=4)
@@ -153,8 +153,8 @@ def test_pp_train_step_matches_sequential():
 def test_pp_denoise_step_matches_sequential():
     """make_denoise_step(pp_mesh=...) — the full guidance step (CFG + STG
     rows as microbatches, I2V-free path) equals the standard step."""
-    from ltx_tpu.ops.latents import VideoLatentShape
-    from ltx_tpu.pipeline.denoise import (
+    from ltx_jax.ops.latents import VideoLatentShape
+    from ltx_jax.pipeline.denoise import (
         GuidanceSpec, build_guidance_context, make_denoise_step,
     )
 
@@ -198,8 +198,8 @@ def test_pp_denoise_step_matches_sequential():
 def test_pp_av_matches_sequential():
     """Dual AV transformer under the pipeline: the (video, audio) activation
     pair hops stages together and must equal the sequential dual scan."""
-    from ltx_tpu.models import dit_av
-    from ltx_tpu.parallel.pipeline import dit_av_forward_pp
+    from ltx_jax.models import dit_av
+    from ltx_jax.parallel.pipeline import dit_av_forward_pp
 
     k = jax.random.split(jax.random.key(3), 6)
     params = dit_av.init_params(k[0], CFG, jnp.float32)
@@ -231,9 +231,9 @@ def test_pp_av_matches_sequential():
 
 def test_pp_av_train_step_matches_sequential():
     """AV joint train step under TrainConfig.pp_mesh == sequential."""
-    from ltx_tpu.models import dit_av
-    from ltx_tpu.train import TrainConfig
-    from ltx_tpu.train.step import init_train_state, make_av_train_step
+    from ltx_jax.models import dit_av
+    from ltx_jax.train import TrainConfig
+    from ltx_jax.train.step import init_train_state, make_av_train_step
 
     k = jax.random.split(jax.random.key(6), 5)
     params = dit_av.init_params(k[0], CFG, jnp.float32)
@@ -270,8 +270,8 @@ def test_pp_pipeline_e2e_generate():
     """LTXPipeline.shard_pp: full tiny T2V e2e through the public API on a
     (1, 2) pipe mesh matches the unsharded pipeline (same seed) at bf16
     tolerance."""
-    from ltx_tpu.core.config import GenerationConfig
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    from ltx_jax.core.config import GenerationConfig
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     cfg = GenerationConfig(width=64, height=64, num_frames=9, num_steps=2,
                            seed=21)
@@ -290,9 +290,9 @@ def test_pp_pipeline_e2e_generate():
 
 def test_pp_shard_excludes_tp():
     """shard()/shard_pp() mutual exclusion holds in BOTH orders."""
-    from ltx_tpu.core.errors import InvalidConfigurationError
-    from ltx_tpu.parallel.sharding import make_mesh
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    from ltx_jax.core.errors import InvalidConfigurationError
+    from ltx_jax.parallel.sharding import make_mesh
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     pipe = LTXPipeline.random_tiny(seed=0)
     pipe.shard(make_mesh(data=1, model=2))
@@ -308,9 +308,9 @@ def test_pp_shard_excludes_tp():
 def test_pp_av_denoise_step_matches_sequential():
     """make_av_denoise_step(pp_mesh=...) — dual AV guidance step (CFG rows
     as microbatches) equals the standard step."""
-    from ltx_tpu.models import dit_av
-    from ltx_tpu.ops.latents import VideoLatentShape
-    from ltx_tpu.pipeline.denoise import GuidanceSpec, make_av_denoise_step
+    from ltx_jax.models import dit_av
+    from ltx_jax.ops.latents import VideoLatentShape
+    from ltx_jax.pipeline.denoise import GuidanceSpec, make_av_denoise_step
 
     params = dit_av.init_params(jax.random.key(31), CFG, jnp.float32)
     guidance = GuidanceSpec(
@@ -349,8 +349,8 @@ def test_pp_av_denoise_step_matches_sequential():
 def test_pp_pipeline_e2e_generate_audio():
     """LTXPipeline.shard_pp with the dual AV path: tiny audio+video e2e on
     a (1, 2) pipe mesh matches the unsharded pipeline at bf16 tolerance."""
-    from ltx_tpu.core.config import GenerationConfig
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    from ltx_jax.core.config import GenerationConfig
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     cfg = GenerationConfig(width=64, height=64, num_frames=9, num_steps=2,
                            seed=23)
@@ -370,7 +370,7 @@ def test_pp_pipeline_e2e_generate_audio():
 
 def test_pp_cli_accepts_audio():
     """--mesh-pp + --audio is a supported combination (dry-run passes)."""
-    import ltx_tpu.io.cli as cli
+    import ltx_jax.io.cli as cli
 
     rc = cli.main(["generate", "x", "--audio", "--mesh-pp", "1,2",
                    "--dry-run"])

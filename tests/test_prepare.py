@@ -6,7 +6,7 @@ import json
 import numpy as np
 import pytest
 
-from ltx_tpu.io.video import export_video, load_video
+from ltx_jax.io.video import export_video, load_video
 
 
 def _synthetic_clip(path, frames=9, h=40, w=48, seed=0):
@@ -43,7 +43,7 @@ def test_load_video_resamples_frames(tmp_path):
 
 @pytest.fixture(scope="module")
 def tiny_pipe():
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     pipe = LTXPipeline.random_tiny(seed=0)
 
@@ -64,8 +64,8 @@ def tiny_pipe():
 
 
 def test_prepare_dataset_to_train_step(tmp_path, tiny_pipe):
-    from ltx_tpu.train.data import LatentShardDataset
-    from ltx_tpu.train.prepare import prepare_dataset
+    from ltx_jax.train.data import LatentShardDataset
+    from ltx_jax.train.prepare import prepare_dataset
 
     clips = tmp_path / "clips"
     clips.mkdir()
@@ -80,7 +80,7 @@ def test_prepare_dataset_to_train_step(tmp_path, tiny_pipe):
                              rows_per_shard=2)
     assert len(shards) == 2  # 2 + 1 rows
 
-    from ltx_tpu.train.data import prefetch_to_device
+    from ltx_jax.train.data import prefetch_to_device
 
     ds = LatentShardDataset(tmp_path / "shards", batch_size=2, seed=0)
     assert ds.num_rows == 3
@@ -95,9 +95,9 @@ def test_prepare_dataset_to_train_step(tmp_path, tiny_pipe):
     import jax
     import jax.numpy as jnp
 
-    from ltx_tpu.ops import rope as rope_ops
-    from ltx_tpu.train import TrainConfig, add_lora, make_train_step
-    from ltx_tpu.train.step import init_train_state
+    from ltx_jax.ops import rope as rope_ops
+    from ltx_jax.train import TrainConfig, add_lora, make_train_step
+    from ltx_jax.train.step import init_train_state
 
     params = add_lora(tiny_pipe.transformer_params, jax.random.key(1),
                       rank=2)
@@ -114,7 +114,7 @@ def test_prepare_dataset_to_train_step(tmp_path, tiny_pipe):
 
 
 def test_prepare_dataset_grid_mismatch_raises(tmp_path, tiny_pipe):
-    from ltx_tpu.train.prepare import prepare_dataset
+    from ltx_jax.train.prepare import prepare_dataset
 
     p = tmp_path / "c.mp4"
     _synthetic_clip(p, frames=9, h=64, w=64)
@@ -124,7 +124,7 @@ def test_prepare_dataset_grid_mismatch_raises(tmp_path, tiny_pipe):
 
 
 def test_prepare_dataset_skip_errors(tmp_path, tiny_pipe):
-    from ltx_tpu.train.prepare import prepare_dataset
+    from ltx_jax.train.prepare import prepare_dataset
 
     good = tmp_path / "good.mp4"
     _synthetic_clip(good, frames=9, h=64, w=64)
@@ -141,7 +141,7 @@ def test_prepare_dataset_skip_errors(tmp_path, tiny_pipe):
 
 
 def test_manifest_and_sidecar_scan(tmp_path):
-    from ltx_tpu.train.prepare import read_manifest, scan_videos
+    from ltx_jax.train.prepare import read_manifest, scan_videos
 
     (tmp_path / "a.mp4").write_bytes(b"x")
     (tmp_path / "a.txt").write_text("caption a\n")
@@ -160,7 +160,7 @@ def test_manifest_and_sidecar_scan(tmp_path):
 
 
 def test_cli_prepare_data_parses():
-    from ltx_tpu.io.cli import build_parser
+    from ltx_jax.io.cli import build_parser
 
     args = build_parser().parse_args(
         ["prepare-data", "manifest.jsonl", "--out", "shards", "-w", "256",

@@ -1,8 +1,7 @@
 """Quantized-checkpoint cache (weights/qcache.py): quantize once, mmap
 afterwards. The reference re-quantizes at every load
-(LTXPipeline.swift:323-333); this is a TPU-deployment addition — load-time
-quantization is ~45 s (int4 DiT) / ~3 min (w8a8 Gemma) of real host work
-(BENCH_NOTES §13)."""
+(LTXPipeline.swift:323-333); this is a deployment addition — load-time
+quantization is real host work."""
 
 import time
 
@@ -10,7 +9,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 
-from ltx_tpu.weights import qcache
+from ltx_jax.weights import qcache
 
 
 def _tree():
@@ -118,7 +117,7 @@ class TestQCache:
         # second save/load cycle: still a hit (cache file excluded from
         # the dir signature)
         assert qcache.load_quantized_tree(d, "gemma-w8a8", sig) is not None
-        from ltx_tpu.weights.download import load_safetensors_dir
+        from ltx_jax.weights.download import load_safetensors_dir
 
         merged = load_safetensors_dir(d)
         assert set(merged) == {"a"}  # qcache file skipped
@@ -135,10 +134,10 @@ class TestQCache:
         import jax
         import jax.numpy as jnp
 
-        from ltx_tpu.core.config import TransformerConfig
-        from ltx_tpu.kernels.quantization import quantize_dit_params
-        from ltx_tpu.models import dit
-        from ltx_tpu.ops import rope as rope_ops
+        from ltx_jax.core.config import TransformerConfig
+        from ltx_jax.kernels.quantization import quantize_dit_params
+        from ltx_jax.models import dit
+        from ltx_jax.ops import rope as rope_ops
 
         cfg = TransformerConfig().tiny()
         params = jax.tree.map(

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import TransformerConfig
-from ltx_tpu.kernels import quantization as q
-from ltx_tpu.models import dit
-from ltx_tpu.ops import rope as rope_ops
+from ltx_jax.core.config import TransformerConfig
+from ltx_jax.kernels import quantization as q
+from ltx_jax.models import dit
+from ltx_jax.ops import rope as rope_ops
 
 
 def test_int8_roundtrip_error():
@@ -89,10 +89,10 @@ def test_transformer_w8a8_walker_and_forward():
     import jax.numpy as jnp
     import numpy as np
 
-    from ltx_tpu.core.config import TransformerConfig
-    from ltx_tpu.kernels.quantization import quantize_transformer_params
-    from ltx_tpu.models import dit
-    from ltx_tpu.ops import rope as rope_ops
+    from ltx_jax.core.config import TransformerConfig
+    from ltx_jax.kernels.quantization import quantize_transformer_params
+    from ltx_jax.models import dit
+    from ltx_jax.ops import rope as rope_ops
 
     # dims large enough to pass the _MIN_QUANT_SIZE threshold (inner 256)
     cfg = dataclasses.replace(TransformerConfig().tiny(), in_channels=32,
@@ -124,3 +124,41 @@ def test_transformer_w8a8_walker_and_forward():
                        np.asarray(out, np.float32).ravel())[0, 1]
     assert np.isfinite(np.asarray(out, np.float32)).all()
     assert corr > 0.99, f"w8a8 DiT diverged: corr={corr}"
+
+
+@pytest.mark.parametrize("shape", [(64, 48), (3, 64, 48)])
+def test_device_int8_channel_matches_numpy_twin(shape):
+    """quantize_int8_channel (device, any leading layer axes) == the numpy
+    twin the loaders use, layer by layer."""
+    import numpy as np
+
+    from ltx_jax.kernels.quantization import (
+        _requant_int8_channel_np_numpy, quantize_int8_channel,
+    )
+
+    w = np.asarray(jax.random.normal(jax.random.key(3), shape)) * 0.05
+    w[..., 5] = 0.0  # an all-zero channel keeps scale 1
+    got = quantize_int8_channel(jnp.asarray(w))
+    layers = w.reshape((-1,) + shape[-2:])
+    want = [_requant_int8_channel_np_numpy(x) for x in layers]
+    np.testing.assert_array_equal(
+        np.asarray(got["w8"]).reshape(layers.shape),
+        np.stack([x["w8"] for x in want]))
+    np.testing.assert_allclose(
+        np.asarray(got["sw"]).reshape(len(layers), -1),
+        np.stack([x["sw"] for x in want]), rtol=1e-6)
+
+
+def test_w8a8_walker_quantizes_device_trees_on_device():
+    """A device (non-numpy) tree quantizes to W8A8 with device arrays out —
+    no host round trip of the weights."""
+    from ltx_jax.kernels.quantization import quantize_transformer_params
+
+    params = {"blocks": {"ff": {"project_in": {
+        "w": jax.random.normal(jax.random.key(4), (2, 256, 512),
+                               jnp.bfloat16),
+        "b": jnp.zeros((2, 512), jnp.bfloat16)}}}}
+    q = quantize_transformer_params(params, bits=8, w8a8=True)
+    leaf = q["blocks"]["ff"]["project_in"]
+    assert isinstance(leaf["w8"], jax.Array) and leaf["w8"].dtype == jnp.int8
+    assert leaf["w8"].shape == (2, 256, 512) and leaf["sw"].shape == (2, 512)

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.ops import rope
+from ltx_jax.ops import rope
 
 
 def test_position_grid_causal_fix_and_fps():

@@ -1,93 +1,19 @@
-"""Multi-host/multi-slice runtime layer (parallel/runtime.py).
+"""Multi-process runtime layer (parallel/runtime.py) on the virtual CPU
+devices: the single-process behaviour of both entry points."""
 
-Real DCN topology can't exist offline; these tests pin the layout
-invariants on the 8-device virtual CPU mesh using pseudo-slices
-(contiguous device groups), which exercise exactly the placement logic a
-real `slice_index` grouping feeds.
-"""
-
-import jax
 import numpy as np
-import pytest
 
-from ltx_tpu.core.errors import InvalidConfigurationError
-from ltx_tpu.parallel import runtime, sharding
-
-
-def test_single_slice_matches_make_mesh():
-    hy = runtime.make_hybrid_mesh(data=2, model=4)
-    base = sharding.make_mesh(data=2, model=4)
-    assert hy.axis_names == base.axis_names == ("data", "model")
-    assert (np.asarray(hy.devices) == np.asarray(base.devices)).all()
-
-
-def test_model_axis_never_crosses_pseudo_slices():
-    # 8 devices as 2 pseudo-slices of 4: a (2, 4) mesh must put each row
-    # entirely inside one slice.
-    devs = jax.devices()
-    mesh = runtime.make_hybrid_mesh(data=2, model=4, slices=2)
-    arr = np.asarray(mesh.devices)
-    slice_of = {d: i // 4 for i, d in enumerate(devs)}
-    for row in arr:
-        assert len({slice_of[d] for d in row}) == 1
-    # and the two rows land on DIFFERENT slices (data crosses DCN)
-    assert slice_of[arr[0, 0]] != slice_of[arr[1, 0]]
-
-
-def test_data_axis_orders_slice_major():
-    # 4 pseudo-slices of 2, (4, 2) mesh: row s == slice s verbatim
-    devs = jax.devices()
-    mesh = runtime.make_hybrid_mesh(data=4, model=2, slices=4)
-    arr = np.asarray(mesh.devices)
-    for s in range(4):
-        assert list(arr[s]) == devs[2 * s:2 * s + 2]
-
-
-def test_pipe_axis_names():
-    mesh = runtime.make_hybrid_mesh(data=1, model=8,
-                                    axis_names=("data", "pipe"))
-    assert mesh.axis_names == ("data", "pipe")
-
-
-def test_model_axis_crossing_dcn_rejected():
-    with pytest.raises(InvalidConfigurationError, match="cross DCN"):
-        runtime.make_hybrid_mesh(data=1, model=8, slices=2)
-
-
-def test_data_not_multiple_of_slices_rejected():
-    with pytest.raises(InvalidConfigurationError, match="multiple of"):
-        runtime.make_hybrid_mesh(data=2, model=4, slices=4,
-                                 devices=jax.devices())
-
-
-def test_device_count_mismatch_rejected():
-    with pytest.raises(InvalidConfigurationError, match="needs"):
-        runtime.make_hybrid_mesh(data=4, model=4)
-
-
-def test_hybrid_mesh_runs_tp_sharded_matmul():
-    # the hybrid mesh is a drop-in for the existing partition specs
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    mesh = runtime.make_hybrid_mesh(data=2, model=4, slices=2)
-    w = jax.device_put(np.ones((16, 32), np.float32),
-                       NamedSharding(mesh, P(None, "model")))
-    x = jax.device_put(np.ones((8, 16), np.float32),
-                       NamedSharding(mesh, P("data", None)))
-    y = jax.jit(lambda a, b: a @ b)(x, w)
-    np.testing.assert_allclose(np.asarray(y), 16.0)
+from ltx_jax.parallel import runtime, sharding
 
 
 def test_initialize_distributed_noop_single_process(monkeypatch):
-    for var in ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS",
-                "TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS"):
+    for var in ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS"):
         monkeypatch.delenv(var, raising=False)
     assert runtime.initialize_distributed() is False
 
 
 def test_process_local_batch_single_process():
-    mesh = runtime.make_hybrid_mesh(data=8, model=1)
+    mesh = sharding.make_mesh(data=8, model=1)
     data = np.arange(8 * 3, dtype=np.float32).reshape(8, 3)
     arr = runtime.process_local_batch(data, mesh)
     assert arr.shape == (8, 3)

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.ops import schedule
+from ltx_jax.ops import schedule
 
 
 def test_distilled_raw_sigmas():

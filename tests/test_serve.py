@@ -13,9 +13,9 @@ import urllib.request
 
 import pytest
 
-from ltx_tpu.serve.batcher import MicroBatcher
-from ltx_tpu.serve.jobs import JobQueue
-from ltx_tpu.serve.server import (
+from ltx_jax.serve.batcher import MicroBatcher
+from ltx_jax.serve.jobs import JobQueue
+from ltx_jax.serve.server import (
     enhance_group_key,
     make_server,
     serve_forever_threaded,
@@ -328,8 +328,8 @@ def test_http_generate_validation(http_app):
 def test_build_app_tiny_pipeline_end_to_end(tmp_path):
     import dataclasses
 
-    from ltx_tpu.pipeline.generate import LTXPipeline
-    from ltx_tpu.serve.app import build_app, request_to_config
+    from ltx_jax.pipeline.generate import LTXPipeline
+    from ltx_jax.serve.app import build_app, request_to_config
 
     pipe = LTXPipeline.random_tiny(seed=0)
     pipe.memory = dataclasses.replace(pipe.memory,
@@ -363,8 +363,8 @@ def test_build_app_tiny_pipeline_end_to_end(tmp_path):
 
 
 def test_request_to_config_kinds():
-    from ltx_tpu.core.errors import LTXError
-    from ltx_tpu.serve.app import request_to_config
+    from ltx_jax.core.errors import LTXError
+    from ltx_jax.serve.app import request_to_config
 
     cfg = request_to_config({"prompt": "x", "kind": "two_stage",
                              "width": 128, "height": 128, "num_frames": 9})
@@ -398,7 +398,7 @@ def test_http_enhance_param_validation(http_app):
 
 
 def test_http_request_size_limits(http_app):
-    from ltx_tpu.serve.server import MAX_PROMPTS_PER_REQUEST
+    from ltx_jax.serve.server import MAX_PROMPTS_PER_REQUEST
 
     too_many = {"prompts": ["p"] * (MAX_PROMPTS_PER_REQUEST + 1)}
     assert _post(http_app + "/v1/enhance", too_many)[0] == 400
@@ -414,7 +414,7 @@ def test_http_request_size_limits(http_app):
 
 
 def test_request_to_config_image_root_fence(tmp_path):
-    from ltx_tpu.serve.app import request_to_config
+    from ltx_jax.serve.app import request_to_config
 
     root = tmp_path / "images"
     root.mkdir()
@@ -436,7 +436,7 @@ def test_request_to_config_image_root_fence(tmp_path):
 
 
 def test_export_config_from_request():
-    from ltx_tpu.serve.app import export_config_from_request
+    from ltx_jax.serve.app import export_config_from_request
 
     cfg = export_config_from_request({}, fps=24.0)
     assert (cfg.codec, cfg.quality, cfg.fps) == ("h264", 0.8, 24.0)
@@ -455,8 +455,8 @@ def test_serve_warmup_precompiles_configured_shapes(tmp_path):
     build_app returns (first-job latency == steady-state)."""
     import dataclasses
 
-    from ltx_tpu.pipeline.generate import LTXPipeline, _WarmCompiles
-    from ltx_tpu.serve.app import build_app
+    from ltx_jax.pipeline.generate import LTXPipeline, _WarmCompiles
+    from ltx_jax.serve.app import build_app
 
     pipe = LTXPipeline.random_tiny(seed=0)
     pipe.memory = dataclasses.replace(pipe.memory,

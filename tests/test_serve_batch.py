@@ -10,9 +10,9 @@ import jax
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig
-from ltx_tpu.pipeline.generate import LTXPipeline
-from ltx_tpu.serve.jobs import DONE, FAILED, JobQueue
+from ltx_jax.core.config import GenerationConfig
+from ltx_jax.pipeline.generate import LTXPipeline
+from ltx_jax.serve.jobs import DONE, FAILED, JobQueue
 
 
 def _cfg(**kw):
@@ -127,7 +127,7 @@ def test_jobqueue_batch_failure_isolated():
 
 
 def test_generate_videos_rejects_i2v(pipe):
-    from ltx_tpu.core.errors import InvalidConfigurationError
+    from ltx_jax.core.errors import InvalidConfigurationError
 
     with pytest.raises(InvalidConfigurationError):
         pipe.generate_videos(["a fox"], _cfg(image_path="/tmp/x.png"))
@@ -136,8 +136,8 @@ def test_generate_videos_rejects_i2v(pipe):
 def test_enhance_prompts_strict_rejects_images_without_vision():
     """image_paths without the vision tower must fail loudly under strict
     (a silent text-only fallback would ship image-blind enhancements)."""
-    from ltx_tpu.core.errors import InvalidConfigurationError
-    from ltx_tpu.pipeline.enhance import enhance_prompts
+    from ltx_jax.core.errors import InvalidConfigurationError
+    from ltx_jax.pipeline.enhance import enhance_prompts
 
     with pytest.raises(InvalidConfigurationError):
         enhance_prompts(None, None, None, ["a fox"],
@@ -151,9 +151,9 @@ def test_serve_v2v_job_http(pipe, tmp_path):
     import urllib.error
     import urllib.request
 
-    from ltx_tpu.io.video import export_video
-    from ltx_tpu.serve.app import build_app
-    from ltx_tpu.serve.server import serve_forever_threaded
+    from ltx_jax.io.video import export_video
+    from ltx_jax.serve.app import build_app
+    from ltx_jax.serve.server import serve_forever_threaded
 
     clip = np.random.default_rng(2).uniform(size=(9, 64, 64, 3)) \
         .astype(np.float32)
@@ -199,9 +199,9 @@ def test_serve_extend_job_http(pipe, tmp_path):
     import urllib.error
     import urllib.request
 
-    from ltx_tpu.io.video import export_video
-    from ltx_tpu.serve.app import build_app
-    from ltx_tpu.serve.server import serve_forever_threaded
+    from ltx_jax.io.video import export_video
+    from ltx_jax.serve.app import build_app
+    from ltx_jax.serve.server import serve_forever_threaded
 
     clip = np.random.default_rng(3).uniform(size=(24, 64, 64, 3)) \
         .astype(np.float32)

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.models import siglip
+from ltx_jax.models import siglip
 
 CFG = siglip.SigLIPConfig().tiny()
 
@@ -115,8 +115,8 @@ def test_weight_loading_hf_layout():
 def test_enhance_uses_vision_tower(params, image_file):
     """enhance_prompt with vision params must consume the image (soft
     tokens change the generated ids vs text-only)."""
-    from ltx_tpu.models import gemma3
-    from ltx_tpu.pipeline import enhance
+    from ltx_jax.models import gemma3
+    from ltx_jax.pipeline import enhance
 
     gcfg = dataclasses.replace(
         gemma3.Gemma3Config().tiny(), hidden_size=CFG.text_hidden_size)

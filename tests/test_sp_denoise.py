@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.ops.attention import set_sequence_parallel
-from ltx_tpu.parallel.sharding import make_mesh
-from ltx_tpu.pipeline.denoise import GuidanceSpec, make_denoise_step
-from ltx_tpu.pipeline.generate import LTXPipeline
-from ltx_tpu.ops.latents import VideoLatentShape
+from ltx_jax.ops.attention import set_sequence_parallel
+from ltx_jax.parallel.sharding import make_mesh
+from ltx_jax.pipeline.denoise import GuidanceSpec, make_denoise_step
+from ltx_jax.pipeline.generate import LTXPipeline
+from ltx_jax.ops.latents import VideoLatentShape
 
 
 @pytest.fixture()
@@ -66,7 +66,7 @@ def test_sp_av_denoise_matches_unsharded(sp_mesh):
     the mesh (token count divides 8); the SHORT audio self-attention (5
     frames, not divisible) and all cross attentions fall back to XLA
     instead of failing the shard_map partition."""
-    from ltx_tpu.pipeline.denoise import (
+    from ltx_jax.pipeline.denoise import (
         build_guidance_context, make_av_denoise_step,
     )
 
@@ -108,7 +108,7 @@ def test_sp_av_denoise_matches_unsharded(sp_mesh):
     """The dual AV transformer rides the same global SP toggle: its video
     self-attention rings over the mesh; audio self-attention and the
     cross-modal attentions (Tq != Tk) fall back correctly."""
-    from ltx_tpu.pipeline.denoise import make_av_denoise_step
+    from ltx_jax.pipeline.denoise import make_av_denoise_step
 
     pipe = LTXPipeline.random_tiny(seed=0, include_audio=True)
     shape = VideoLatentShape(1, pipe.tcfg.in_channels, 2, 4, 4)  # 32 tok

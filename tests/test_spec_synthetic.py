@@ -14,8 +14,8 @@ import jax
 import numpy as np
 import pytest
 
-from ltx_tpu.models import gemma3
-from ltx_tpu.weights.synthetic import default_cycle, make_cycle_gemma_params
+from ltx_jax.models import gemma3
+from ltx_jax.weights.synthetic import default_cycle, make_cycle_gemma_params
 
 CFG = gemma3.Gemma3Config().tiny()
 CYCLE = default_cycle(CFG, period=11)

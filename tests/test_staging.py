@@ -1,8 +1,8 @@
 """Phase staging: host-resident params placed per phase, released after.
 
-At real scale Gemma int4 (~8.5 GB) + DiT int4 (~8 GB) exceed one chip's
-~15.5 GB HBM, so single-chip e2e REQUIRES the load path to keep params on
-host and the pipeline to place/release them per phase (utils/staging.py,
+A device whose memory cannot hold every phase's weights at once needs the
+load path to keep params on host and the pipeline to place/release them
+per phase (utils/staging.py,
 MemoryConfig.phase_staging). The reference's analogue is whole-model
 unloading between phases (LTXPipeline.swift:726-731, :988-999).
 """
@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig, MemoryConfig
-from ltx_tpu.pipeline.generate import LTXPipeline
-from ltx_tpu.utils import staging
+from ltx_jax.core.config import GenerationConfig, MemoryConfig
+from ltx_jax.pipeline.generate import LTXPipeline
+from ltx_jax.utils import staging
 
 
 def _hostify(tree):
@@ -118,7 +118,7 @@ def test_two_stage_staged():
 
 def test_host_quantization_matches_device():
     """quantize_transformer_params on a host tree == device tree (bitwise)."""
-    from ltx_tpu.kernels.quantization import quantize_transformer_params
+    from ltx_jax.kernels.quantization import quantize_transformer_params
 
     rng = np.random.default_rng(0)
     w = rng.standard_normal((2, 256, 256)).astype(np.float32)
@@ -140,7 +140,7 @@ def test_host_quantization_matches_device():
 
 def test_keymaps_produce_host_trees():
     """Weight loaders must return numpy trees (no device staging at load)."""
-    from ltx_tpu.weights import keymaps
+    from ltx_jax.weights import keymaps
 
     num_layers = 2
     d, ffn, cap = 8, 16, 4
@@ -187,7 +187,7 @@ def test_staged_sharded_generation():
     shard() defers placement for host trees; _on_device shards each phase's
     component (TP for the DiT, replicate for the rest), and the release
     restores the host original."""
-    from ltx_tpu.parallel.sharding import make_mesh
+    from ltx_jax.parallel.sharding import make_mesh
 
     ref = LTXPipeline.random_tiny(seed=0)
     ref.memory = dataclasses.replace(ref.memory, offload_text_encoder=False)

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.models import gemma3, text_encoder
+from ltx_jax.models import gemma3, text_encoder
 
 GCFG = gemma3.Gemma3Config().tiny()  # 7 layers, pattern 3 -> globals at 2, 5
 TCFG = text_encoder.TextEncoderConfig().tiny()

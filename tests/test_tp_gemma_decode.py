@@ -1,9 +1,7 @@
 """TP-sharded Gemma DECODE loop (VERDICT r3 next #1).
 
-Enhancement is ~80% of the north-star e2e and the decode is weight-DMA
-bound (docs/BENCH_NOTES.md §3-4, §14): the remaining ~8x on v5e-8 is
-splitting the per-token weight DMA over the mesh. These tests pin the
-correctness half of that claim on the virtual CPU mesh: the TP-sharded
+The decode is bound by weight reads, so TP splits the per-token reads over
+the mesh. These tests pin the correctness of that on the virtual CPU mesh: the TP-sharded
 generation program (prefill + while_loop, KV cache constrained to the
 kv-head axis) is token-identical to the single-device loop under greedy
 sampling, for the plain, batched, speculative and W8A8-quantized paths.
@@ -16,21 +14,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.models import gemma3
-from ltx_tpu.parallel.sharding import (
+from ltx_jax.models import gemma3
+from ltx_jax.parallel.sharding import (
     gemma_param_specs, make_mesh, shard_gemma_params,
 )
 
 needs_mesh = pytest.mark.skipif(
     len(jax.devices()) < 2, reason="needs >=2 devices")
-
-
-@pytest.fixture(autouse=True)
-def _reset_tp_flag():
-    yield
-    from ltx_tpu.kernels.quantization import set_tensor_parallel
-
-    set_tensor_parallel(False)
 
 
 @pytest.fixture(scope="module")
@@ -104,9 +94,9 @@ def test_tp_batched_greedy_rows_match_sequential(gcfg, params):
 @needs_mesh
 def test_tp_w8a8_greedy_decode_token_identical(gcfg, params):
     """The serving-default W8A8 base: int8 leaves shard like any linear
-    (w8 column/row, sw with the output dim) and the int8 MXU dot is
+    (w8 column/row, sw with the output dim) and the s8 x s8 dot is
     GSPMD-partitionable — the whole decode program runs TP."""
-    from ltx_tpu.kernels.quantization import requant_int8_channel_np
+    from ltx_jax.kernels.quantization import requant_int8_channel_np
 
     ql = dict(params["layers"])
     for nm in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
@@ -137,8 +127,8 @@ def test_pipeline_enhance_runs_tp_on_sharded_pipe():
     import dataclasses
     import types
 
-    from ltx_tpu.core.config import GenerationConfig
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    from ltx_jax.core.config import GenerationConfig
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     class Tok:
         def encode(self, text):

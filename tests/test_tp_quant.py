@@ -9,18 +9,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import TransformerConfig
-from ltx_tpu.kernels.quantization import (
+from ltx_jax.core.config import TransformerConfig
+from ltx_jax.kernels.quantization import (
     is_quantized,
     quantize_transformer_params,
 )
-from ltx_tpu.ops.latents import VideoLatentShape
-from ltx_tpu.parallel.sharding import (
+from ltx_jax.ops.latents import VideoLatentShape
+from ltx_jax.parallel.sharding import (
     make_mesh,
     shard_transformer_params,
     transformer_param_specs,
 )
-from ltx_tpu.pipeline.denoise import GuidanceSpec, make_denoise_step
+from ltx_jax.pipeline.denoise import GuidanceSpec, make_denoise_step
 
 needs_mesh = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 virtual devices")
@@ -37,7 +37,7 @@ def tcfg():
 
 @pytest.fixture(scope="module")
 def qparams(tcfg):
-    from ltx_tpu.models import dit
+    from ltx_jax.models import dit
 
     params = dit.init_params(jax.random.key(0), tcfg, jnp.bfloat16)
     return quantize_transformer_params(params, bits=4, group_size=16)
@@ -45,7 +45,7 @@ def qparams(tcfg):
 
 def test_quantize_walker_covers_av_blocks(tcfg):
     """All 6 attentions + 2 FFNs of the dual block quantize."""
-    from ltx_tpu.models import dit_av
+    from ltx_jax.models import dit_av
 
     big = dataclasses.replace(
         tcfg, num_layers=1, num_heads=4, head_dim=64,
@@ -106,8 +106,8 @@ def test_int4_tp_matches_single_device(tcfg, qparams):
 
 @needs_mesh
 def test_av_tp_matches_single_device():
-    from ltx_tpu.models import dit_av
-    from ltx_tpu.pipeline.denoise import make_av_denoise_step
+    from ltx_jax.models import dit_av
+    from ltx_jax.pipeline.denoise import make_av_denoise_step
 
     tcfg = dataclasses.replace(
         TransformerConfig().tiny(), audio_num_heads=4, audio_head_dim=32)
@@ -141,7 +141,7 @@ def test_av_tp_matches_single_device():
 
 @needs_mesh
 def test_gemma_tp_matches_single_device():
-    from ltx_tpu.models import gemma3
+    from ltx_jax.models import gemma3
 
     gcfg = gemma3.Gemma3Config().tiny()
     params = gemma3.init_params(jax.random.key(6), gcfg, jnp.bfloat16)
@@ -164,8 +164,8 @@ def test_gemma_tp_matches_single_device():
 def test_gemma_w8a8_tp_matches_single_device():
     """W8A8 leaves ({"w8","sw"}) shard over the model axis like any other
     quantized linear: w8 column/row by leaf name, sw with the output dim."""
-    from ltx_tpu.kernels.quantization import requant_int8_channel_np
-    from ltx_tpu.models import gemma3
+    from ltx_jax.kernels.quantization import requant_int8_channel_np
+    from ltx_jax.models import gemma3
 
     gcfg = gemma3.Gemma3Config().tiny()
     params = gemma3.init_params(jax.random.key(7), gcfg, jnp.float32)
@@ -201,8 +201,8 @@ def test_gemma_w8a8_tp_matches_single_device():
 @needs_mesh
 def test_pipeline_shard_end_to_end():
     """pipe.shard(mesh) then a full tiny generation."""
-    from ltx_tpu.core.config import GenerationConfig
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    from ltx_jax.core.config import GenerationConfig
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     pipe = LTXPipeline.random_tiny(seed=0)
     pipe.memory = dataclasses.replace(pipe.memory,

@@ -12,16 +12,16 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from ltx_tpu.core.config import TransformerConfig
-from ltx_tpu.kernels import quantization as q
-from ltx_tpu.models import dit
-from ltx_tpu.ops import rope as rope_ops
-from ltx_tpu.parallel import sharding as sh
-from ltx_tpu.train import (
+from ltx_jax.core.config import TransformerConfig
+from ltx_jax.kernels import quantization as q
+from ltx_jax.models import dit
+from ltx_jax.ops import rope as rope_ops
+from ltx_jax.parallel import sharding as sh
+from ltx_jax.train import (
     TrainConfig, add_lora, flow_match_loss, lora_param_mask, make_train_step,
     merge_lora, sample_sigmas, strip_lora,
 )
-from ltx_tpu.train.step import (
+from ltx_jax.train.step import (
     combine_params, init_train_state, partition_trainable,
 )
 
@@ -62,7 +62,7 @@ def test_int8_ste_grad_matches_dequantized_dense():
 
 
 def test_int4_ste_grad_matches_dequantized_dense():
-    """d/dx of the fused int4 matmul == g @ dequant(W)^T."""
+    """d/dx of the int4 linear == g @ dequant(W)^T."""
     key = jax.random.key(1)
     kx, kw = jax.random.split(key)
     k, n = 512, 256
@@ -72,8 +72,7 @@ def test_int4_ste_grad_matches_dequantized_dense():
           for k2, v in q._quantize_weight_np(np.asarray(w), 4, 64).items()}
 
     def f(xx):
-        return jnp.sum(q.int4_matmul(qp, xx, interpret=True)
-                       .astype(jnp.float32))
+        return jnp.sum(q.linear_any(qp, xx).astype(jnp.float32))
 
     g = jax.grad(f)(x)
     w_deq = q.dequantize_weight(qp, jnp.bfloat16)
@@ -175,8 +174,8 @@ def test_merge_lora_matches_side_path():
 def test_export_roundtrip_through_fusion(tmp_path):
     """save_lora -> the INFERENCE fuse path (parse_lora/map_lora_key/
     fuse_lora_file) -> fused forward == side-path forward."""
-    from ltx_tpu.lora import fuse
-    from ltx_tpu.train.export import lora_state_dict, save_lora
+    from ltx_jax.lora import fuse
+    from ltx_jax.train.export import lora_state_dict, save_lora
 
     params = dit.init_params(jax.random.key(0), CFG, dtype=jnp.float32)
     lp = add_lora(params, jax.random.key(3), rank=4)
@@ -310,8 +309,8 @@ def test_qlora_over_w8a8_base(monkeypatch):
 def test_av_lora_train_step():
     """Joint AV flow-matching LoRA step: adapters land in all 6 attentions
     + both FFNs, loss decreases, base frozen."""
-    from ltx_tpu.models import dit_av
-    from ltx_tpu.train import make_av_train_step
+    from ltx_jax.models import dit_av
+    from ltx_jax.train import make_av_train_step
 
     params = dit_av.init_params(jax.random.key(0), CFG, dtype=jnp.float32)
     lp = add_lora(params, jax.random.key(3), rank=4)
@@ -385,7 +384,7 @@ def test_grad_accumulation_updates_every_k():
 
 
 def test_ema_tracks_trainable():
-    from ltx_tpu.train import ema_init, make_ema_update
+    from ltx_jax.train import ema_init, make_ema_update
 
     params = dit.init_params(jax.random.key(0), CFG, dtype=jnp.float32)
     lp = add_lora(params, jax.random.key(3), rank=4)
@@ -405,7 +404,7 @@ def test_ema_tracks_trainable():
 
 def test_checkpoint_resume_exact(tmp_path):
     """save -> load -> continue == uninterrupted training (same keys)."""
-    from ltx_tpu.train import load_train_checkpoint, save_train_checkpoint
+    from ltx_jax.train import load_train_checkpoint, save_train_checkpoint
 
     params = dit.init_params(jax.random.key(0), CFG, dtype=jnp.float32)
     lp = add_lora(params, jax.random.key(3), rank=4)
@@ -448,7 +447,7 @@ def test_checkpoint_resume_exact(tmp_path):
 
 
 def _write_shards(root, n_shards=2, rows=5, grid=(2, 2, 3), s=16):
-    from ltx_tpu.train.data import write_shard
+    from ltx_jax.train.data import write_shard
 
     rng = np.random.default_rng(0)
     t = grid[0] * grid[1] * grid[2]
@@ -465,7 +464,7 @@ def _write_shards(root, n_shards=2, rows=5, grid=(2, 2, 3), s=16):
 
 
 def test_dataset_shuffles_and_resumes(tmp_path):
-    from ltx_tpu.train.data import LatentShardDataset
+    from ltx_jax.train.data import LatentShardDataset
 
     _write_shards(tmp_path)
     ds = LatentShardDataset(tmp_path, batch_size=4, seed=7)
@@ -488,7 +487,7 @@ def test_dataset_shuffles_and_resumes(tmp_path):
 
 
 def test_dataset_rejects_mixed_grids(tmp_path):
-    from ltx_tpu.train.data import LatentShardDataset, write_shard
+    from ltx_jax.train.data import LatentShardDataset, write_shard
 
     _write_shards(tmp_path, n_shards=1)
     write_shard(tmp_path / "bad.npz",
@@ -522,9 +521,9 @@ def test_train_lora_script_e2e(tmp_path):
     ])
     assert out.exists() and ckpt.exists()
 
-    from ltx_tpu.lora import fuse
+    from ltx_jax.lora import fuse
     layers = fuse.parse_lora(
-        __import__("ltx_tpu.weights.download",
+        __import__("ltx_jax.weights.download",
                    fromlist=["load_safetensors"]).load_safetensors(out))
     assert len(layers) == CFG.num_layers * 10
     # resume path: 2 more steps from the checkpoint
@@ -593,8 +592,8 @@ def test_train_lora_cli_mesh_e2e(tmp_path):
         "--mesh", "2,4",
     ])
     assert out.exists()
-    from ltx_tpu.lora import fuse
-    from ltx_tpu.weights.download import load_safetensors
+    from ltx_jax.lora import fuse
+    from ltx_jax.weights.download import load_safetensors
     layers = fuse.parse_lora(load_safetensors(out))
     assert len(layers) == CFG.num_layers * 10
 
@@ -604,10 +603,10 @@ def test_segmented_remat_matches_per_block():
     LoRA grads must match per-block remat exactly (same op order)."""
     import jax.numpy as jnp
 
-    from ltx_tpu.models import dit
-    from ltx_tpu.ops import rope as rope_ops
-    from ltx_tpu.train import TrainConfig, add_lora
-    from ltx_tpu.train.flow_match import flow_match_loss
+    from ltx_jax.models import dit
+    from ltx_jax.ops import rope as rope_ops
+    from ltx_jax.train import TrainConfig, add_lora
+    from ltx_jax.train.flow_match import flow_match_loss
 
     cfg = CFG  # tiny, num_layers=2
     params = add_lora(dit.init_params(jax.random.key(0), cfg, jnp.float32),
@@ -638,8 +637,8 @@ def test_segmented_remat_matches_per_block():
 def test_segmented_remat_av_matches():
     import jax.numpy as jnp
 
-    from ltx_tpu.models import dit_av
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    from ltx_jax.models import dit_av
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     pipe = LTXPipeline.random_tiny(seed=0, include_audio=True)
     cfg = pipe.tcfg
@@ -666,8 +665,8 @@ def test_segmented_remat_invalid_segments():
     import jax.numpy as jnp
     import pytest as _pytest
 
-    from ltx_tpu.models import dit
-    from ltx_tpu.ops import rope as rope_ops
+    from ltx_jax.models import dit
+    from ltx_jax.ops import rope as rope_ops
 
     cfg = CFG
     params = dit.init_params(jax.random.key(0), cfg, jnp.float32)
@@ -689,7 +688,7 @@ def test_train_step_sp_ring_matches_xla():
     logits."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from ltx_tpu.ops.attention import set_sequence_parallel
+    from ltx_jax.ops.attention import set_sequence_parallel
 
     mesh = sh.make_mesh(data=1, model=8)
     params = add_lora(dit.init_params(jax.random.key(0), CFG, jnp.float32),

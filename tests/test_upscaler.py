@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig
-from ltx_tpu.models import upscaler
+from ltx_jax.core.config import GenerationConfig
+from ltx_jax.models import upscaler
 
 CFG = upscaler.UpscalerConfig().tiny()
 
@@ -85,7 +85,7 @@ def test_upscaler_weight_loading():
 
 
 def test_two_stage_pipeline():
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     pipe = LTXPipeline.random_tiny(seed=0)
     pipe.memory = dataclasses.replace(pipe.memory, offload_text_encoder=False)
@@ -100,7 +100,7 @@ def test_two_stage_pipeline():
 
 
 def test_two_stage_i2v():
-    from ltx_tpu.pipeline.generate import LTXPipeline
+    from ltx_jax.pipeline.generate import LTXPipeline
 
     pipe = LTXPipeline.random_tiny(seed=0)
     pipe.memory = dataclasses.replace(pipe.memory, offload_text_encoder=False)

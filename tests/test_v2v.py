@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig
-from ltx_tpu.core.errors import InvalidConfigurationError
-from ltx_tpu.pipeline.generate import LTXPipeline
+from ltx_jax.core.config import GenerationConfig
+from ltx_jax.core.errors import InvalidConfigurationError
+from ltx_jax.pipeline.generate import LTXPipeline
 
 
 def _cfg(**kw):
@@ -58,8 +58,8 @@ def test_v2v_partial_noising_semantics(pipe, clip):
     at strength s over an N-step schedule, the tail starts at index
     k = round((1-s)N), and the initial latent is
     add_noise(encode(clip), T2V-noise, sigma_k)."""
-    from ltx_tpu.ops import schedule
-    from ltx_tpu.ops.latents import VideoLatentShape, generate_noise
+    from ltx_jax.ops import schedule
+    from ltx_jax.ops.latents import VideoLatentShape, generate_noise
 
     cfg = _cfg(num_steps=8)
     seen = {}
@@ -97,7 +97,7 @@ def test_v2v_partial_noising_semantics(pipe, clip):
 def test_v2v_loads_from_file(pipe, clip, tmp_path):
     """Round-trips through the exporter + load_video reader (the CLI's
     --video path)."""
-    from ltx_tpu.io.video import export_video
+    from ltx_jax.io.video import export_video
 
     ref = np.clip((np.asarray(clip)[0].transpose(1, 2, 3, 0) + 1) / 2, 0, 1)
     path = str(tmp_path / "in.mp4")

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.models import vae
+from ltx_jax.models import vae
 
 CFG = vae.VAEConfig().tiny()
 
@@ -220,7 +220,7 @@ def test_yuv420_transfer_close_to_f32():
 def test_yuv420_roundtrip_helpers():
     """Device quantize -> host inverse round-trips within quantization +
     subsample error on a smooth field (exact on flat colors)."""
-    from ltx_tpu.models.vae import _rgb_to_yuv420_u8, _yuv420_to_rgb_np
+    from ltx_jax.models.vae import _rgb_to_yuv420_u8, _yuv420_to_rgb_np
 
     flat = jnp.ones((1, 3, 2, 8, 8), jnp.float32) * jnp.asarray(
         [0.2, -0.4, 0.6]).reshape(1, 3, 1, 1, 1)

@@ -18,8 +18,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.models import vae
-from ltx_tpu.parallel.sharding import make_mesh
+from ltx_jax.models import vae
+from ltx_jax.parallel.sharding import make_mesh
 
 needs_mesh = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 virtual devices")

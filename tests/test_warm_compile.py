@@ -16,15 +16,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import GenerationConfig
-from ltx_tpu.ops.latents import VideoLatentShape
-from ltx_tpu.pipeline.denoise import (
+from ltx_jax.core.config import GenerationConfig
+from ltx_jax.ops.latents import VideoLatentShape
+from ltx_jax.pipeline.denoise import (
     GuidanceSpec,
     build_guidance_context,
     make_av_denoise_step,
     make_denoise_step,
 )
-from ltx_tpu.pipeline.generate import GenerationTimings, LTXPipeline, \
+from ltx_jax.pipeline.generate import GenerationTimings, LTXPipeline, \
     _WarmCompiles
 
 
@@ -129,7 +129,7 @@ def test_warm_keyframe_lowering_matches_real(pipe):
 
 
 def test_warm_upscaler_lowering_matches_real(pipe):
-    from ltx_tpu.models.upscaler import UpscalerConfig, upsample_latents_jit
+    from ltx_jax.models.upscaler import UpscalerConfig, upsample_latents_jit
 
     cfg = _cfg(width=128, height=128)
     warm = pipe._warm_upscaler_lowering(cfg).as_text()
@@ -149,7 +149,7 @@ def test_warm_upscaler_lowering_matches_real(pipe):
 
 def _real_av_step_text(pipe, cfg, guidance, width=None, height=None,
                        cond_frames=None, video_euler="scheduler"):
-    from ltx_tpu.models import dit_av
+    from ltx_jax.models import dit_av
 
     shape = VideoLatentShape.from_pixels(
         1, cfg.num_frames, height or cfg.height, width or cfg.width,

@@ -17,9 +17,9 @@ import numpy as np
 import pytest
 
 import weight_fixtures as wf
-from ltx_tpu.core.errors import WeightLoadingFailedError
-from ltx_tpu.models import audio_vae, upscaler
-from ltx_tpu.weights import keymaps
+from ltx_jax.core.errors import WeightLoadingFailedError
+from ltx_jax.models import audio_vae, upscaler
+from ltx_jax.weights import keymaps
 
 # Tiny dims for materialized loads; layer/block COUNTS stay real so the
 # key sets are count-identical to the real checkpoints.

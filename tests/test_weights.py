@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ltx_tpu.core.config import TransformerConfig
-from ltx_tpu.models import dit, gemma3, text_encoder, vae
-from ltx_tpu.weights import keymaps
+from ltx_jax.core.config import TransformerConfig
+from ltx_jax.models import dit, gemma3, text_encoder, vae
+from ltx_jax.weights import keymaps
 
 
 def test_transformer_key_mapping_table():
@@ -98,7 +98,7 @@ def test_transformer_load_and_forward():
     )
 
     # full forward runs
-    from ltx_tpu.ops import rope as rope_ops
+    from ltx_jax.ops import rope as rope_ops
 
     cos, sin = rope_ops.video_rope(2, 2, 2, cfg.inner_dim, cfg.num_heads)
     out = dit.dit_forward(
